@@ -1,0 +1,72 @@
+"""Forward model: layered state -> radiance / brightness temperature.
+
+Port of `monortm_tpu.models.monortm` (the reference driver's per-profile
+pipeline, monortm.f90:357-588): MODM optical depths -> RTM.  Built once
+per run on one device; `forward` is a function of a (batched) state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from monortm_tpu.lines import PackedCatalog
+from monortm_tpu_torch.models.od import ODModel, ODResult
+from monortm_tpu_torch.models.rt import RTResult, rtm
+from monortm_tpu_torch.ops.continuum import ContinuumFactors
+from monortm_tpu_torch.ops.lineshape import LineConfig
+from monortm_tpu_torch.types import LayerState
+
+
+@dataclasses.dataclass
+class ForwardResult:
+    rt: RTResult
+    od: ODResult
+    emis: Any
+    refl: Any
+
+
+class MonoRTM:
+    """Configured forward model for one spectral setup, on one device."""
+
+    def __init__(self, wn: np.ndarray, dvset: float, catalog: PackedCatalog,
+                 nmol: int = 39,
+                 factors: ContinuumFactors = ContinuumFactors(),
+                 line_cfg: LineConfig = LineConfig(), *, device,
+                 dtype: torch.dtype = torch.float32,
+                 wn_tile: int = 128, line_tile: int = 256):
+        self.wn = np.asarray(wn, np.float64)
+        self.dtype = dtype
+        self.od_model = ODModel(wn, dvset, catalog, nmol=nmol,
+                                factors=factors, line_cfg=line_cfg,
+                                device=device, dtype=dtype, wn_tile=wn_tile,
+                                line_tile=line_tile)
+        self.device = self.od_model.device
+
+    def engine_split(self, state: LayerState):
+        """(engine, lor_layers) for `state`, computed on the model's device
+        (see ODModel.engine_split)."""
+        return self.od_model.engine_split(state)
+
+    def forward(self, state: LayerState, tsfc, emis, refl, irt: int,
+                engine: str = "full", lor_layers=None) -> ForwardResult:
+        """Complete forward computation for one (batched) profile set.
+
+        tsfc: a float or a [...] tensor of surface temperatures; emis/refl:
+        [W] or [..., W] boundary spectra (tensors on the model's device);
+        irt: 1 up / 2 limb / 3 down.
+        """
+        od = self.od_model(state, engine=engine, lor_layers=lor_layers)
+        rt = rtm(od.od_total, state.t.to(self.dtype)[..., None, :],
+                 state.tz.to(self.dtype)[..., None, :], self.od_model.wn_t,
+                 tsfc, emis, refl, irt)
+        return ForwardResult(rt=rt, od=od, emis=emis, refl=refl)
+
+    def tb(self, state: LayerState, tsfc, emis, refl, irt: int,
+           engine: str = "full", lor_layers=None):
+        """Brightness temperatures only."""
+        return self.forward(state, tsfc, emis, refl, irt, engine=engine,
+                            lor_layers=lor_layers).rt.tb

@@ -1,0 +1,319 @@
+"""Optical-depth model: lines + continuum + cloud (port of
+`monortm_tpu.models.od`, MODM modm.f90:21-274).
+
+An `ODModel` is built once per run for a static wavenumber grid and
+catalog, on one device.  Its host half — the block-sparse plans — is the
+JAX package's numpy code (`_build_pallas_plan`, :217-306) copied, so both
+packages build identical plans; the plans then live on the device.  Its
+call is a function of the layered state, batched over an optional
+leading profile axis.
+
+The line sum has two engines over the same kind of plan: "full" (the
+CUDA kernel with the Lorentz/SD-Voigt switch, nt=256/wt=128 by default)
+and "lorentz" (its VOIGT=false instantiation, exact where every line of a
+layer is in the Lorentz regime, on its own 128/128 plan).  "hybrid" splits
+the layer axis between them (`engine_split` picks the layers).
+
+Not ported: the dense `line_od_block` engine, float64 runs,
+cross-sections (od_xsec), meshes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from monortm_tpu import constants as cst
+from monortm_tpu.lines import PackedCatalog
+from monortm_tpu_torch.ops.cloud import od_clw
+from monortm_tpu_torch.ops.continuum import (SPECIES, ContinuumFactors,
+                                             ContinuumPlan)
+from monortm_tpu_torch.ops.lineshape import (LineConfig, catalog_to_device,
+                                             catalog_to_host)
+from monortm_tpu_torch.ops.linesum import VOIGT_KERNEL, line_od_forward
+from monortm_tpu_torch.ops.linesum_lorentz import (LORENTZ_KERNEL,
+                                                   all_lorentz_predicate)
+from monortm_tpu_torch.ops.tips import Tips
+from monortm_tpu_torch.types import FIELDS, LayerState
+
+ENGINES = ("full", "lorentz", "hybrid")
+_KERNELS = {"full": VOIGT_KERNEL, "lorentz": LORENTZ_KERNEL}
+
+
+@dataclasses.dataclass
+class ODResult:
+    od_total: Any       # [..., W, L]   total layer OD (wn-major like O(M,K))
+    od_by_mol: Any      # [..., W, M, L] line OD per molecule
+    oc: Any             # dict species -> [..., L, W] continuum OD
+    od_clw: Any         # [..., L, W]
+
+
+def build_plan(catalog: PackedCatalog, host_cat: dict, wn64: np.ndarray,
+               nt: int, wt: int) -> dict:
+    """Block-sparse plan for the line sum (host numpy).
+
+    Lines are re-ordered into nu-sorted windowed tiles of `nt` followed by
+    O2 tiles (O2 is exempt from the 25 cm^-1 cut, modm.f90:384); each
+    wavenumber tile of `wt` gets a static candidate list of the windowed
+    tiles overlapping its +-25 cm^-1 reach plus every O2 tile.  Padding
+    slots map to tile 0 with valid=0 and are skipped, so pruning is purely
+    an optimisation.  The JAX package's `ODModel._build_pallas_plan` on a
+    single device, returning the plan instead of setting attributes.
+    """
+    nwn = len(wn64)
+    nt = max(128, (nt // 128) * 128)
+    wt = max(128, (wt // 128) * 128)
+    valid = np.asarray(catalog.valid)
+    is_o2 = (np.asarray(catalog.mol) == 7) & valid
+    idx_o2 = np.nonzero(is_o2)[0]
+    idx_win = np.nonzero(~is_o2 & valid)[0]
+    nu0 = np.asarray(catalog.nu0)
+    idx_win = idx_win[np.argsort(nu0[idx_win], kind="stable")]
+
+    def tiles_from(idx):
+        k = max(1, -(-len(idx) // nt))
+        rows = np.zeros(k * nt, np.int64)
+        rows[:len(idx)] = idx
+        mask = np.zeros(k * nt, bool)
+        mask[:len(idx)] = True
+        return rows.reshape(k, nt), mask.reshape(k, nt)
+
+    win_rows, win_mask = tiles_from(idx_win)
+    k_win = win_rows.shape[0] if len(idx_win) else 0
+    parts = [(win_rows, win_mask)] if k_win else []
+    k_o2 = 0
+    if len(idx_o2):
+        o2_rows, o2_mask = tiles_from(idx_o2)
+        k_o2 = o2_rows.shape[0]
+        parts.append((o2_rows, o2_mask))
+    if not parts:                       # empty catalog: one dead tile
+        parts = [tiles_from(np.zeros(0, np.int64))]
+        k_win = 1
+    rows = np.concatenate([p[0] for p in parts]).reshape(-1)
+    mask = np.concatenate([p[1] for p in parts]).reshape(-1)
+
+    cat = {k: v[rows] for k, v in host_cat.items()}
+    cat["valid"] = np.asarray(catalog.valid)[rows] & mask
+
+    # padded wavenumber grid + host two-float split (float64 numpy)
+    n_wtile = max(1, -(-nwn // wt))
+    wp = n_wtile * wt
+    wn_pad = np.full(wp, 1.0e6, np.float64)
+    wn_pad[:nwn] = wn64
+    wn_hi = wn_pad.astype(np.float32)
+    wn_lo = (wn_pad - wn_hi.astype(np.float64)).astype(np.float32)
+    n_wt = wp // wt
+
+    # candidate tiles per wavenumber tile: windowed tiles whose nu range
+    # (pressure-shift margin included) reaches within 25 cm^-1, plus every
+    # O2 tile
+    margin = 25.0
+    if len(catalog.pshift):
+        margin += 2.0 * float(np.max(np.abs(catalog.pshift)))
+    cands = []
+    if k_win and len(idx_win):
+        nu_t = np.where(win_mask, nu0[win_rows], np.nan)
+        lo = np.nanmin(nu_t, axis=1) - margin
+        hi = np.nanmax(nu_t, axis=1) + margin
+    for i in range(n_wt):
+        w = wn_pad[i * wt:(i + 1) * wt]
+        w = w[w < 9.0e5]
+        sel = []
+        if k_win and len(idx_win) and len(w):
+            wmin, wmax = w.min(), w.max()
+            sel = list(np.nonzero((lo <= wmax) & (hi >= wmin))[0])
+        sel += list(range(k_win, k_win + k_o2))    # O2 tiles always
+        cands.append(sel)
+    n_cand = max(max((len(c) for c in cands), default=0), 1)
+    cmap = np.zeros((n_wt, n_cand), np.int32)
+    cvalid = np.zeros((n_wt, n_cand), np.int32)
+    for i, c in enumerate(cands):
+        cmap[i, :len(c)] = c
+        cvalid[i, :len(c)] = 1
+    return {"cat": cat, "nt": nt, "wt": wt, "wn_hi": wn_hi, "wn_lo": wn_lo,
+            "cand_map": cmap, "cand_valid": cvalid}
+
+
+def plan_to_device(plan: dict, device) -> dict:
+    """A host plan's arrays as tensors on `device`, after checking that
+    every candidate index names a line tile of the catalog."""
+    n_tiles = len(plan["cat"]["mol"]) // plan["nt"]
+    cm = plan["cand_map"]
+    if cm.size and (cm.min() < 0 or cm.max() >= n_tiles):
+        raise ValueError(f"candidate map names tiles outside [0, {n_tiles})")
+    return {
+        "cat": catalog_to_device(plan["cat"], device),
+        "nt": plan["nt"], "wt": plan["wt"],
+        "wn_hi": torch.as_tensor(plan["wn_hi"], device=device),
+        "wn_lo": torch.as_tensor(plan["wn_lo"], device=device),
+        "cand_map": torch.as_tensor(cm, device=device),
+        "cand_valid": torch.as_tensor(plan["cand_valid"], device=device),
+    }
+
+
+class ODModel:
+    """Optical depths for one spectral setup, on one device, in float32."""
+
+    def __init__(self, wn: np.ndarray, dvset: float, catalog: PackedCatalog,
+                 nmol: int = 39,
+                 factors: ContinuumFactors = ContinuumFactors(),
+                 line_cfg: LineConfig = LineConfig(), *, device,
+                 dtype: torch.dtype = torch.float32,
+                 wn_tile: int = 128, line_tile: int = 256):
+        if dtype != torch.float32:
+            raise NotImplementedError(
+                "only float32 runs are ported; float64 needs the dense "
+                "line_od_block engine, which is not ported yet")
+        self.device = torch.device(device)
+        self.wn64 = np.asarray(wn, np.float64)
+        self.nwn = len(self.wn64)
+        self.nmol = int(nmol)
+        self.dtype = dtype
+        self.line_cfg = line_cfg
+        self.cont = ContinuumPlan(self.wn64, dvset=dvset, factors=factors,
+                                  nmol=nmol, device=self.device)
+        self.tips = Tips(self.device, dtype)
+        self.catalog = catalog
+        self.host_cat = catalog_to_host(catalog)
+        self.dev_cat = catalog_to_device(self.host_cat, self.device)
+
+        self.plan = build_plan(catalog, self.host_cat, self.wn64,
+                               nt=line_tile, wt=wn_tile)
+        # the all-Lorentz engine gets its own 128/128 plan over the same
+        # catalog unless the tiles already match (as monortm_tpu's ODModel)
+        if (line_tile, wn_tile) != (128, 128):
+            self.plan_lorentz = build_plan(catalog, self.host_cat, self.wn64,
+                                           nt=128, wt=128)
+        else:
+            self.plan_lorentz = self.plan
+        self.dev_plans = {"full": plan_to_device(self.plan, self.device),
+                           "lorentz": plan_to_device(self.plan_lorentz,
+                                                     self.device)}
+        # wn in the compute dtype (== the plan's wn_hi over the real grid)
+        self.wn_t = torch.as_tensor(self.wn64, dtype=dtype,
+                                    device=self.device)
+
+    def _check(self, state: LayerState) -> LayerState:
+        """The state in the model's dtype; it must already be on its device."""
+        for f in FIELDS:
+            v = getattr(state, f)
+            if v.device != self.device:
+                raise ValueError(f"state.{f} is on {v.device}; the model is "
+                                 f"on {self.device}")
+        return LayerState(**{f: getattr(state, f).to(self.dtype)
+                             for f in FIELDS})
+
+    def line_od(self, state: LayerState, scor_flat, engine: str = "full",
+                lor_layers=None):
+        """Line OD [..., L, W, M] through the block-sparse line sum.
+
+        Leading batch axes are flattened into the kernel's layer axis.
+        engine="hybrid" sweeps the lor_layers indices (layers whose every
+        line passes zeta > 0.99) through the all-Lorentz instantiation and
+        the rest through the full one, scattering results back in layer
+        order.
+        """
+        if engine == "hybrid":
+            L = state.p.shape[-1]
+            lor = sorted(int(i) for i in (lor_layers or ()))
+            voigt = [i for i in range(L) if i not in set(lor)]
+            if not lor or not voigt:
+                return self.line_od(state, scor_flat,
+                                    engine="lorentz" if lor else "full")
+
+            ixL = torch.as_tensor(lor, device=self.device)
+            ixV = torch.as_tensor(voigt, device=self.device)
+
+            def sub(ix):
+                st = LayerState(
+                    p=state.p.index_select(-1, ix),
+                    t=state.t.index_select(-1, ix),
+                    tz=state.tz,
+                    wkl=state.wkl.index_select(-2, ix),
+                    wbrodl=state.wbrodl.index_select(-1, ix),
+                    clw=state.clw)
+                return st, scor_flat.index_select(-2, ix)
+
+            outL = self.line_od(*sub(ixL), engine="lorentz")
+            outV = self.line_od(*sub(ixV), engine="full")
+            out = outL.new_zeros(outL.shape[:-3] + (L,) + outL.shape[-2:])
+            out.index_copy_(-3, ixL, outL)
+            return out.index_copy_(-3, ixV, outV)
+        if engine not in _KERNELS:
+            raise ValueError(f"engine must be one of {ENGINES}: {engine!r}")
+
+        plan = self.dev_plans[engine]
+        dtype = self.dtype
+        lead = state.p.shape                       # [..., L]
+        flat = lambda a, trail: a.to(dtype).reshape((-1,) + trail)
+        sf = line_od_forward(
+            plan["cat"], plan["wn_hi"], plan["wn_lo"], plan["cand_map"],
+            plan["cand_valid"], plan["nt"], plan["wt"],
+            flat(state.p, ()), flat(state.t, ()),
+            flat(state.wkl, (state.wkl.shape[-1],)), flat(state.wbrodl, ()),
+            scor_flat.reshape(-1, scor_flat.shape[-1]),
+            cfg=self.line_cfg, n_mol=self.nmol, kernel=_KERNELS[engine])
+        sf = sf.reshape(lead + sf.shape[1:])[..., :self.nwn, :]
+
+        # od = RFT * W_species * SF (modm.f90:436-438)
+        t_ = state.t.to(dtype)
+        wn_d = self.wn_t
+        rft = wn_d * torch.tanh(cst.RADCT * wn_d / (2.0 * t_[..., None]))
+        wk_m = state.wkl.to(dtype)[..., :self.nmol]
+        return rft[..., :, None] * wk_m[..., None, :] * sf
+
+    def engine_split(self, state: LayerState):
+        """(engine, lor_layers) for `state`, as bench.py dispatches: the
+        layers whose every valid line takes the Lorentz branch (zeta >
+        0.99, modm.f90:427) in every profile take the all-Lorentz engine,
+        which equals the full one there.  The predicate is evaluated on
+        the model's device; only the per-layer verdict comes to the
+        host."""
+        state = self._check(state)
+        scor = self.tips.scor(state.t)
+        rows = all_lorentz_predicate(
+            self.dev_cat, state.p, state.t, state.wkl, state.wbrodl,
+            scor.reshape(scor.shape[:-2] + (39 * 9,)), self.line_cfg,
+            self.dtype)
+        rows = rows.reshape(-1, rows.shape[-1]).all(dim=0).cpu().numpy()
+        if rows.all():
+            return "lorentz", ()
+        if rows.any():
+            return "hybrid", tuple(np.nonzero(rows)[0].tolist())
+        return "full", ()
+
+    def __call__(self, state: LayerState, engine: str = "full",
+                 lor_layers=None) -> ODResult:
+        """Full OD computation (modm.f90:200-272).
+
+        od_total / od_by_mol come out wn-major, [..., W, L] and
+        [..., W, M, L], for the RT solver; the rest [..., L, W].
+        """
+        dtype = self.dtype
+        state = self._check(state)
+        scor = self.tips.scor(state.t)
+        scor_flat = scor.reshape(scor.shape[:-2] + (39 * 9,))
+
+        od_lines = self.line_od(state, scor_flat, engine=engine,
+                                lor_layers=lor_layers)    # [..., L, W, M]
+        oc = self.cont(state.p, state.t, state.wkl, state.wbrodl,
+                       dtype=dtype)
+
+        # cloud liquid water (modm.f90:264)
+        o_clw = od_clw(self.wn_t, state.t[..., None], state.clw[..., None])
+
+        # molecule-axis sum in a FIXED sequential order, as the JAX
+        # package's scan: the order does not depend on shapes or devices
+        total = torch.zeros_like(od_lines[..., 0])
+        for m in range(od_lines.shape[-1]):
+            total = total + od_lines[..., m]
+        for sp in SPECIES[:-1]:
+            total = total + oc[sp]
+        total = total + oc["rayleigh"] + o_clw
+
+        return ODResult(od_total=total.movedim(-2, -1),
+                        od_by_mol=od_lines.movedim(-3, -1), oc=oc,
+                        od_clw=o_clw)

@@ -1,0 +1,106 @@
+"""Synthetic fixtures for tests, the chip smoke run and benchmarks.
+
+jax-free copies of `monortm_tpu.testing.synthetic_catalog_mw` and
+`synthetic_state`: the same numpy code, drawn from the same
+`default_rng(seed)` in the same order, so both packages see identical
+inputs.
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from monortm_tpu.io.tape3 import RawLines
+from monortm_tpu.lines import PackedCatalog, group, pack, resolve
+from monortm_tpu_torch.convert import state_from_numpy
+from monortm_tpu_torch.types import LayerState
+
+
+def synthetic_catalog_mw(n_h2o: int = 64, n_o2: int = 48, seed: int = 0,
+                         tile: int = 128, raw_lines: bool = False
+                         ) -> PackedCatalog | RawLines:
+    """A microwave-band-like synthetic catalog (0-60 cm^-1).
+
+    raw_lines=True returns the RawLines instead (e.g. for write_tape3)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+
+    def line(vnu, sp, alfa, epp, mol, iso, hwhm, tmpalf, pshift, iflg=0,
+             sdep=0.0):
+        rows.append([vnu, sp, alfa, epp, mol + 100 * iso, hwhm, tmpalf,
+                     pshift, iflg, sdep])
+
+    # H2O 22.2 GHz-like + rotational lines
+    for v in np.sort(rng.uniform(0.5, 60.0, n_h2o)):
+        line(v, 10 ** rng.uniform(-28, -24), rng.uniform(0.06, 0.1),
+             rng.uniform(20, 600), 1, int(rng.integers(1, 4)),
+             rng.uniform(0.3, 0.5), rng.uniform(0.6, 0.8),
+             rng.uniform(-0.02, 0.02), sdep=float(rng.uniform(0, 0.12)))
+    # O2 60 GHz complex-like lines with -1 coupling rows
+    for v in np.sort(rng.uniform(1.5, 10.0, n_o2)):
+        line(v, 10 ** rng.uniform(-26, -25), rng.uniform(0.04, 0.05),
+             rng.uniform(0, 100), 7, 1, rng.uniform(0.04, 0.05),
+             rng.uniform(0.7, 0.75), 0.0, iflg=1)
+        y = rng.uniform(-0.02, 0.02, 4)
+        g = rng.uniform(-2e-4, 0.0, 4)
+        mol_bits = int(np.float32(y[2]).view(np.int32))
+        rows.append([y[0], g[0], y[1], g[1], mol_bits, g[2], y[3], g[3],
+                     -1, 0.0])
+    # N2 lines
+    for v in (4.0, 9.7):
+        line(v, 1e-30, 0.05, 30.0, 22, 1, 0.048, 0.7, 0.0)
+
+    n = len(rows)
+    raw = RawLines(
+        vnu=np.asarray([r[0] for r in rows], np.float64),
+        sp=np.asarray([r[1] for r in rows], np.float32),
+        alfa=np.asarray([r[2] for r in rows], np.float32),
+        epp=np.asarray([r[3] for r in rows], np.float32),
+        mol=np.asarray([r[4] for r in rows], np.int32),
+        hwhm=np.asarray([r[5] for r in rows], np.float32),
+        tmpalf=np.asarray([r[6] for r in rows], np.float32),
+        pshift=np.asarray([r[7] for r in rows], np.float32),
+        iflg=np.asarray([r[8] for r in rows], np.int32),
+        brd_mol_flg=np.zeros((n, 7), np.int32),
+        brd_mol_hw=np.zeros((n, 7), np.float32),
+        brd_mol_tmp=np.zeros((n, 7), np.float32),
+        brd_mol_shft=np.zeros((n, 7), np.float32),
+        speed_dep=np.asarray([r[9] for r in rows], np.float32),
+    )
+    if raw_lines:
+        return raw
+    return pack(resolve(group(raw)), tile=tile)
+
+
+def synthetic_state(nlay: int = 26, batch: int | None = None,
+                    seed: int = 0, *, device,
+                    dtype: torch.dtype = torch.float64) -> LayerState:
+    """A US-standard-like layered state (surface -> top)."""
+    rng = np.random.default_rng(seed)
+    p = np.geomspace(1000.0, 50.0, nlay)
+    t = 288.0 - 60.0 * (1.0 - p / 1000.0)
+    tz = np.concatenate([[t[0] + 2.0], t - 1.0])
+    wkl = np.zeros((nlay, 39))
+    col = p / p.sum()
+    wkl[:, 0] = 4.5e22 * col * np.exp(-np.arange(nlay) / 6.0) * 6
+    wkl[:, 1] = 7.5e21 * col
+    wkl[:, 2] = 9.0e18 * col
+    wkl[:, 6] = 4.5e24 * col
+    wkl[:, 21] = 1.7e25 * col
+    wbrodl = 2.0e22 * col
+    clw = np.zeros(nlay)
+    clw[2] = 0.03
+
+    def b(x):
+        if batch is None:
+            return x
+        out = np.broadcast_to(x, (batch,) + x.shape).copy()
+        out *= (1.0 + 0.01 * rng.standard_normal((batch,) + (1,) * x.ndim))
+        return out
+
+    host = SimpleNamespace(p=b(p), t=b(t), tz=b(tz), wkl=b(wkl),
+                           wbrodl=b(wbrodl), clw=b(clw))
+    return state_from_numpy(host, device, dtype)

@@ -1,0 +1,84 @@
+"""Guards on the port's boundaries.
+
+- `monortm_tpu_torch` runs its forward pass without importing jax (the
+  machine with the GPU has no JAX);
+- `chip_smoke.py` fails, and prints no result, where there is no GPU;
+- importing the kernel module needs neither nvcc nor triton.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+TINY_FORWARD = """
+import sys
+import numpy as np
+import torch
+from monortm_tpu_torch.models.monortm import MonoRTM
+from monortm_tpu_torch.testing import synthetic_catalog_mw, synthetic_state
+wn = np.linspace(0.3, 55.0, 32)
+m = MonoRTM(wn, float(wn[1] - wn[0]), synthetic_catalog_mw(n_h2o=16, n_o2=8),
+            nmol=22, device="cpu")
+s = synthetic_state(nlay=4, batch=2, device="cpu", dtype=torch.float32)
+engine, lor = m.engine_split(s)
+emis = torch.full((len(wn),), 0.95)
+tb = m.tb(s, 288.0, emis, 1.0 - emis, irt=3, engine=engine, lor_layers=lor)
+assert tb.shape == (2, 32) and bool(torch.isfinite(tb).all())
+print(sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")))
+"""
+
+
+def _run(args, env=None, cwd=ROOT, timeout=240):
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def _env(**extra):
+    env = dict(os.environ)
+    env.update(extra)
+    return env
+
+
+def test_port_never_imports_jax():
+    res = _run(["-c", TINY_FORWARD], env=_env(OMP_NUM_THREADS="1"))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+
+
+def test_chip_smoke_fails_without_a_gpu(tmp_path):
+    """Here (no CUDA) the script must exit non-zero and print no result;
+    so must a copy standing alone, without the package beside it."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (alone, tmp_path)):
+        res = _run([str(script)], env=_env(CUDA_VISIBLE_DEVICES=""),
+                   cwd=cwd)
+        assert res.returncode != 0, res.stdout
+        assert '"ok": true' not in res.stdout
+        for line in res.stdout.splitlines():
+            if line.startswith("{"):
+                assert json.loads(line).get("ok") is not True
+
+
+def test_kernel_module_imports_without_toolchain():
+    """No nvcc on PATH, no CUDA_HOME, no triton: the kernel module still
+    imports, builds nothing, and CPU tensors take the plain version."""
+    code = (
+        "import sys, torch\n"
+        "from monortm_tpu_torch.ops import linesum_kernel as lk\n"
+        "from monortm_tpu_torch.ops import linesum, linesum_lorentz\n"
+        "assert 'triton' not in sys.modules\n"
+        "assert not lk.BUILD_DIR.exists() or not any(\n"
+        "    p.stat().st_mtime > START for p in lk.BUILD_DIR.iterdir())\n"
+        "assert linesum.VOIGT_KERNEL.launches == 0\n"
+        "print('ok')\n")
+    res = _run(["-c", f"START = {time.time()}\n" + code],
+               env=_env(PATH=os.path.dirname(sys.executable),
+                        CUDA_HOME="/nonexistent"))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
