@@ -4,13 +4,17 @@ A port of `monortm_tpu` (the JAX/Pallas package, which stays the
 reference).  The forward pass `models.monortm.MonoRTM.forward` runs the
 same stages as the JAX one: TIPS ratios, the LINES prologue, the
 block-sparse line sum, the MT_CKD continuum, the TKC cloud OD, the
-fixed-order total and the cumsum RT solve.  The line sum is a CUDA C++
-kernel written for sm_90a (`csrc/linesum.cu`), with a plain PyTorch
-version beside it that serves CPU tensors and the tests.
+fixed-order total and the cumsum RT solve.  It is differentiable in every
+float field of the layered state (the retrieval adjoint: torch.autograd
+on `MonoRTM.tb`).  The line sum and its adjoint are CUDA C++ kernels
+written for sm_90a (`csrc/linesum.cu`, `csrc/linesum_bwd.cu`), each with
+a plain PyTorch version beside it that serves CPU tensors and the tests.
+Models run on the card (`device="cuda"`) unless the caller asks for the
+CPU.
 
-This package imports `torch` and never `jax`; from the JAX package it
-uses only the jax-free host modules (constants, lines, io.tape3,
-data.loader).
+This package imports `torch` and never `jax`, nor any module of the JAX
+package: it carries its own copies of the host modules it needs
+(`constants`, `lines`, `io.tape3`, `data.loader` and its tables).
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """Carrying host (numpy) state across into the port.
 
-The JAX package's `LayerState` holds numpy arrays on the host; the
-`PackedCatalog` is numpy too and is shared by both packages as it is.
+The JAX package's `LayerState` holds numpy arrays on the host; a
+`PackedCatalog` is numpy too, and the port reads only its fields, so a
+catalog of either package serves.
 Host-side two-float splits (nu0_hi/nu0_lo, wn_hi/wn_lo) are formed in
 float64 numpy by the plan builders and never in torch float32.
 """

@@ -39,6 +39,8 @@
 // [wt, n_mol] accumulator.  No atomics and no split over lines, so the
 // summation order is fixed and results are reproducible run to run.
 //
+// The line shapes and the per-(wavenumber, line) evaluation live in
+// linesum_math.cuh, shared with the adjoint kernel (linesum_bwd.cu).
 // Built by monortm_tpu_torch/ops/linesum_kernel.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 // and called through ctypes (plain C entry point below).
@@ -46,175 +48,15 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "linesum_math.cuh"
+
 namespace {
 
-#define F(x) (static_cast<float>(x))
-
-// constants as the JAX package forms them: a Python double rounded to f32
-constexpr float PI_F = F(3.1415926535898);             // constants.PI
-constexpr float SQRT_LN2 = F(0.8325546111576977);      // sqrt(ln 2)
-constexpr float RSQRT_PI_LN2 = F(0.46971863934982516); // sqrt(ln2 / PI)
-constexpr float INV_SQRT2 = F(0.7071067811865475);
-constexpr float QUARTER_INV_LN2 = F(0.36067376022224085);  // 1/4/ln 2
-constexpr float INV_PI = F(0.31830987334251404);       // f32(1/pi)
-constexpr float CUT = 25.0f;                           // DELTNU_CUT
-constexpr float CUT2 = 625.0f;
-
-// line flags, bit per linesum_pallas.FLAGS entry
-constexpr int FL_O2 = 1, FL_CO2 = 2, FL_CPL = 4, FL_XF1 = 8, FL_XF15 = 16,
-              FL_VALID = 32;
+using namespace linesum;
 
 constexpr int CHUNK = 256;   // lines staged in shared memory at a time
 constexpr int N_STAGED = 12; // staged arrays: 3 per line, 7 per (layer,
                              // line), flags, molecule
-
-// ---- Humlicek rationals, real-pair complex arithmetic (ops/voigt.py) ----
-
-__device__ __forceinline__ void cmul(float ar, float ai, float br, float bi,
-                                     float& cr, float& ci) {
-    cr = ar * br - ai * bi;
-    ci = ar * bi + ai * br;
-}
-
-__device__ __forceinline__ float cdiv_re(float ar, float ai, float br,
-                                         float bi) {
-    float d = br * br + bi * bi;
-    return (ar * br + ai * bi) / d;
-}
-
-__device__ float w_region1(float tr, float ti) {
-    float ur, ui;
-    cmul(tr, ti, tr, ti, ur, ui);
-    return cdiv_re(F(0.5641896) * tr, F(0.5641896) * ti, 0.5f + ur, ui);
-}
-
-__device__ float w_region2(float tr, float ti) {
-    float ur, ui, nr, ni, dr, di;
-    cmul(tr, ti, tr, ti, ur, ui);
-    cmul(tr, ti, F(1.410474) + F(0.5641896) * ur, F(0.5641896) * ui, nr, ni);
-    cmul(ur, ui, 3.0f + ur, ui, dr, di);
-    return cdiv_re(nr, ni, 0.75f + dr, di);
-}
-
-__device__ float w_region3(float tr, float ti) {
-    const float num[5] = {F(0.5642236), F(3.778987), F(11.96482),
-                          F(20.20933), F(16.4955)};
-    const float den[6] = {F(1.0), F(6.699398), F(21.69274), F(39.27121),
-                          F(38.82363), F(16.4955)};
-    float nr = num[0], ni = 0.0f, dr = den[0], di = 0.0f, cr, ci;
-#pragma unroll
-    for (int k = 1; k < 5; ++k) {
-        cmul(nr, ni, tr, ti, cr, ci);
-        nr = cr + num[k];
-        ni = ci;
-    }
-#pragma unroll
-    for (int k = 1; k < 6; ++k) {
-        cmul(dr, di, tr, ti, cr, ci);
-        dr = cr + den[k];
-        di = ci;
-    }
-    return cdiv_re(nr, ni, dr, di);
-}
-
-__device__ float w_region4(float tr, float ti) {
-    const float num[7] = {F(0.56419), F(1.320522), F(35.76683), F(219.0313),
-                          F(1540.787), F(3321.9905), F(36183.31)};
-    const float den[8] = {F(1.0), F(1.841439), F(61.57037), F(364.2191),
-                          F(2186.181), F(9022.228), F(24322.84),
-                          F(32066.6)};
-    float ur, ui, qr, qi;
-    cmul(tr, ti, tr, ti, ur, ui);
-    // alternating-sign polynomials in u as written in the reference
-    float nr = num[0], ni = 0.0f;
-#pragma unroll
-    for (int k = 1; k < 7; ++k) {
-        cmul(ur, ui, nr, ni, qr, qi);
-        nr = num[k] - qr;
-        ni = -qi;
-    }
-    float dr = den[0], di = 0.0f;
-#pragma unroll
-    for (int k = 1; k < 8; ++k) {
-        cmul(ur, ui, dr, di, qr, qi);
-        dr = den[k] - qr;
-        di = -qi;
-    }
-    float d = dr * dr + di * di;
-    float fr = (nr * dr + ni * di) / d;
-    float fi = (ni * dr - nr * di) / d;
-    float pr = tr * fr - ti * fi;   // Re[t * num / den]
-    // Re[cexp(u) - t*num/den]
-    return expf(ur) * cosf(ui) - pr;
-}
-
-// Re[w(x + i y)], Humlicek W4 (modm.f90:1100-1130): one region per point
-__device__ float w4_real(float x, float y) {
-    float tr = y, ti = -x;
-    float s = fabsf(x) + y;
-    if (s >= 15.0f) return w_region1(tr, ti);
-    if (s >= 5.5f) return w_region2(tr, ti);
-    if (y < F(0.195) * fabsf(x) - F(0.176)) return w_region4(tr, ti);
-    return w_region3(tr, ti);
-}
-
-// VOIGT (modm.f90:900-962)
-__device__ float voigt(float dnu, float al, float ad) {
-    if (!(ad > 0.0f)) return al / (PI_F * (al * al + dnu * dnu));
-    float x = SQRT_LN2 * dnu / ad;
-    float y = SQRT_LN2 * al / ad;
-    return w4_real(x, y) * RSQRT_PI_LN2 / ad;
-}
-
-// SD_Humlicek region id (boundaries 15/6; modm.f90:1160-1179)
-__device__ __forceinline__ int sd_region(float s, float xh, float yh) {
-    if (s >= 15.0f) return 1;
-    if (s >= 6.0f) return 2;
-    return (yh < F(0.195) * fabsf(xh) - F(0.176)) ? 4 : 3;
-}
-
-// Re[w] for combined region r, per-point 4 -> 3 fallback
-// (modm.f90:1217-1247)
-__device__ float w_by_region(float tr, float ti, int r, bool own4) {
-    if (r == 1) return w_region1(tr, ti);
-    if (r == 2) return w_region2(tr, ti);
-    if (r == 4 && own4) return w_region4(tr, ti);
-    return w_region3(tr, ti);
-}
-
-__device__ __forceinline__ float safe_sqrt(float u) {
-    return u > 0.0f ? sqrtf(u) : 0.0f;
-}
-
-// SDVOIGT (modm.f90:965-1087), Boone et al. 2011 two-point form, with the
-// f32 fallback to the plain Voigt where delta > 1e6 (ops/voigt.py)
-__device__ float sdvoigt(float dnu, float al, float ad, float sdep) {
-    bool use_sd = fabsf(sdep) > F(1.0e-4);
-    float sdep_safe = use_sd ? sdep : 1.0f;
-    float gamma2 = al * sdep_safe;
-    float g2 = gamma2 != 0.0f ? gamma2 : 1.0f;
-    float alfa = al / g2 - 1.5f;
-    float beta = dnu / g2;
-    float delta = QUARTER_INV_LN2 * (ad * ad / g2 / g2);
-    if (!(use_sd && delta < 1.0e6f)) return voigt(dnu, al, ad);
-    float ad_safe = ad > 0.0f ? ad : 1.0f;
-    float alfadelta = alfa + delta;
-    float tmp = safe_sqrt(alfadelta * alfadelta + beta * beta);
-    float sqrt_delta = safe_sqrt(delta);
-    float x1 = INV_SQRT2 * safe_sqrt(tmp + alfadelta) - sqrt_delta;
-    float x2 = x1 + 2.0f * sqrt_delta;
-    float h = (tmp - delta - alfa) / 2.0f;
-    float sgn = beta > 0.0f ? 1.0f : (beta < 0.0f ? -1.0f : 0.0f);
-    float y1 = sgn * safe_sqrt(h > 0.0f ? h : 0.0f);
-    float s1 = fabsf(y1) + x1;
-    float s2 = fabsf(y1) + x2;
-    int r1 = sd_region(s1, y1, x1);
-    int r2 = sd_region(s2, y1, x2);
-    int r = r1 > r2 ? r1 : r2;
-    float w1 = w_by_region(x1, -y1, r, r1 == 4);
-    float w2 = w_by_region(x2, -y1, r, r2 == 4);
-    return (w1 - w2) * RSQRT_PI_LN2 / ad_safe;
-}
 
 // ---- the line sum --------------------------------------------------------
 
@@ -287,70 +129,14 @@ __global__ void linesum_kernel(
                 // outside [0, n_mol) contribute nothing (the one-hot row
                 // of the JAX kernel is zero there)
                 if (!(fl & FL_VALID) || m < 0 || m >= n_mol) continue;
-                const float nhi = s_nu_hi[q], nlo = s_nu_lo[q];
-                const float sh = s_shift[q];
-                const float xnu = nhi + (nlo + sh);
-                const float d1 = (whi - nhi) + (wlo - nlo) - sh;
-                const float dsum = whi + xnu;
-                const bool mirror = (dsum - CUT) <= 0.0f;
-                const bool within = fabsf(d1) <= CUT;
-                const bool is_o2 = fl & FL_O2;
-                if (!(within || is_o2)) continue;     // 25 cm^-1 window
-                const bool cpl = fl & FL_CPL;
-                const bool need_k2 = mirror || (is_o2 && cpl);
-                const float h = s_hw[q];
-
-                float k1, k2 = 0.0f, k3;
-                bool use_lor = true;
-                float a = 0.0f;
-                if (VOIGT) {
-                    a = s_ad[q];
-                    const bool zlor = h * F(0.01) > a * F(0.99);
-                    use_lor = (fabsf(d1) > 100.0f * a) || zlor;
-                }
-                if (use_lor) {
-                    const float hw_pi = h * INV_PI;
-                    const float hw2 = h * h;
-                    k1 = hw_pi / (hw2 + d1 * d1);
-                    if (need_k2) k2 = hw_pi / (hw2 + dsum * dsum);
-                    if (VOIGT) {
-                        const float z = CUT / h;
-                        k3 = 1.0f / (PI_F * (1.0f + z * z)) / h;
-                    } else {
-                        k3 = hw_pi / (hw2 + CUT2);
-                    }
-                } else {
-                    const float sd = s_sdep[q];
-                    k1 = sdvoigt(d1, h, a, sd);
-                    if (need_k2) k2 = sdvoigt(dsum, h, a, sd);
-                    k3 = s_k3v[q];
-                }
-
-                const float yav = s_ya[q], ybv = s_yb[q];
-                const float y1 = 1.0f + yav * d1 + ybv;
-                float sls;
-                if (is_o2) {
-                    if (cpl) {
-                        const float y2 = 1.0f - yav * dsum + ybv;
-                        sls = (fl & FL_XF1) ? k1 * y1 + k2 * y2 : k1 + k2;
-                    } else {
-                        sls = within ? k1 + (mirror ? k2 : 0.0f) : 0.0f;
-                    }
-                } else if (fl & FL_CO2) {
-                    const float ped = 2.0f - (d1 * d1) / CUT2;
-                    const float xp4 = k3 * ped;
-                    sls = (cpl && (fl & FL_XF15))
-                              ? k1 * y1 - xp4 - k3 * ((y1 - 1.0f) * ped)
-                              : k1 - xp4;
-                } else if (cpl) {
-                    const float y2 = 1.0f - yav * dsum + ybv;
-                    const float y1p = 1.0f + yav * CUT + ybv;
-                    const float y2p = 1.0f - yav * CUT + ybv;
-                    sls = y1 * k1 - y1p * k3
-                          + (mirror ? y2 * k2 - y2p * k3 : 0.0f);
-                } else {
-                    sls = k1 - k3 + (mirror ? k2 - k3 : 0.0f);
-                }
+                const Line ln{s_nu_hi[q], s_nu_lo[q], s_sdep[q],
+                              s_shift[q], s_stild[q], s_hw[q], s_ad[q],
+                              s_k3v[q], s_ya[q], s_yb[q], fl};
+                Pair pr;
+                if (!pair_of(whi, wlo, ln, pr)) continue;  // 25 cm^-1 window
+                float k1, k2, k3;
+                shapes<VOIGT>(pr, ln, k1, k2, k3);
+                const float sls = branch_trees(pr, ln, k1, k2, k3);
                 my_acc[m] += sls * s_stild[q];
             }
         }

@@ -13,7 +13,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from monortm_tpu.lines import PackedCatalog
+from monortm_tpu_torch.lines import PackedCatalog
 from monortm_tpu_torch.models.od import ODModel, ODResult
 from monortm_tpu_torch.models.rt import RTResult, rtm
 from monortm_tpu_torch.ops.continuum import ContinuumFactors
@@ -30,12 +30,19 @@ class ForwardResult:
 
 
 class MonoRTM:
-    """Configured forward model for one spectral setup, on one device."""
+    """Configured forward model for one spectral setup, on one device (the
+    CUDA card unless `device` names another, e.g. "cpu").
+
+    `tb` and `forward` are differentiable in every float field of the
+    state: the retrieval adjoint is torch.autograd on `tb`, as
+    jax.value_and_grad is on the JAX side; the line sum's backward is the
+    adjoint kernel on the card and the plain adjoint on the CPU.
+    """
 
     def __init__(self, wn: np.ndarray, dvset: float, catalog: PackedCatalog,
                  nmol: int = 39,
                  factors: ContinuumFactors = ContinuumFactors(),
-                 line_cfg: LineConfig = LineConfig(), *, device,
+                 line_cfg: LineConfig = LineConfig(), *, device="cuda",
                  dtype: torch.dtype = torch.float32,
                  wn_tile: int = 128, line_tile: int = 256):
         self.wn = np.asarray(wn, np.float64)

@@ -26,14 +26,15 @@ from typing import Any
 import numpy as np
 import torch
 
-from monortm_tpu import constants as cst
-from monortm_tpu.lines import PackedCatalog
+from monortm_tpu_torch import constants as cst
+from monortm_tpu_torch.lines import PackedCatalog
 from monortm_tpu_torch.ops.cloud import od_clw
 from monortm_tpu_torch.ops.continuum import (SPECIES, ContinuumFactors,
                                              ContinuumPlan)
 from monortm_tpu_torch.ops.lineshape import (LineConfig, catalog_to_device,
                                              catalog_to_host)
-from monortm_tpu_torch.ops.linesum import VOIGT_KERNEL, line_od_forward
+from monortm_tpu_torch.ops.linesum import (VOIGT_KERNEL, line_od_forward,
+                                           reverse_map)
 from monortm_tpu_torch.ops.linesum_lorentz import (LORENTZ_KERNEL,
                                                    all_lorentz_predicate)
 from monortm_tpu_torch.ops.tips import Tips
@@ -61,7 +62,8 @@ def build_plan(catalog: PackedCatalog, host_cat: dict, wn64: np.ndarray,
     tiles overlapping its +-25 cm^-1 reach plus every O2 tile.  Padding
     slots map to tile 0 with valid=0 and are skipped, so pruning is purely
     an optimisation.  The JAX package's `ODModel._build_pallas_plan` on a
-    single device, returning the plan instead of setting attributes.
+    single device, returning the plan instead of setting attributes, plus
+    the reverse map of the adjoint (`linesum_pallas._reverse_map`).
     """
     nwn = len(wn64)
     nt = max(128, (nt // 128) * 128)
@@ -133,8 +135,11 @@ def build_plan(catalog: PackedCatalog, host_cat: dict, wn64: np.ndarray,
     for i, c in enumerate(cands):
         cmap[i, :len(c)] = c
         cvalid[i, :len(c)] = 1
+    # the adjoint kernel walks the transpose: wn tiles per line tile
+    rmap, rvalid = reverse_map(cmap, cvalid, len(rows) // nt)
     return {"cat": cat, "nt": nt, "wt": wt, "wn_hi": wn_hi, "wn_lo": wn_lo,
-            "cand_map": cmap, "cand_valid": cvalid}
+            "cand_map": cmap, "cand_valid": cvalid, "rev_map": rmap,
+            "rev_valid": rvalid}
 
 
 def plan_to_device(plan: dict, device) -> dict:
@@ -151,16 +156,19 @@ def plan_to_device(plan: dict, device) -> dict:
         "wn_lo": torch.as_tensor(plan["wn_lo"], device=device),
         "cand_map": torch.as_tensor(cm, device=device),
         "cand_valid": torch.as_tensor(plan["cand_valid"], device=device),
+        "rev": tuple(torch.as_tensor(plan[k], device=device)
+                     for k in ("rev_map", "rev_valid")),
     }
 
 
 class ODModel:
-    """Optical depths for one spectral setup, on one device, in float32."""
+    """Optical depths for one spectral setup, on one device (the CUDA card
+    unless `device` names another), in float32."""
 
     def __init__(self, wn: np.ndarray, dvset: float, catalog: PackedCatalog,
                  nmol: int = 39,
                  factors: ContinuumFactors = ContinuumFactors(),
-                 line_cfg: LineConfig = LineConfig(), *, device,
+                 line_cfg: LineConfig = LineConfig(), *, device="cuda",
                  dtype: torch.dtype = torch.float32,
                  wn_tile: int = 128, line_tile: int = 256):
         if dtype != torch.float32:
@@ -255,7 +263,8 @@ class ODModel:
             flat(state.p, ()), flat(state.t, ()),
             flat(state.wkl, (state.wkl.shape[-1],)), flat(state.wbrodl, ()),
             scor_flat.reshape(-1, scor_flat.shape[-1]),
-            cfg=self.line_cfg, n_mol=self.nmol, kernel=_KERNELS[engine])
+            cfg=self.line_cfg, n_mol=self.nmol, kernel=_KERNELS[engine],
+            rev=plan["rev"])
         sf = sf.reshape(lead + sf.shape[1:])[..., :self.nwn, :]
 
         # od = RFT * W_species * SF (modm.f90:436-438)

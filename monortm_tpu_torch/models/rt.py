@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from monortm_tpu import constants as c
+from monortm_tpu_torch import constants as c
 from monortm_tpu_torch.ops.planck import brightness_temperature, planck
 
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from monortm_tpu import constants as c
+from monortm_tpu_torch import constants as c
 from monortm_tpu_torch.ops.arith import rdiv
 
 _HZ_PER_GHZ = 1.0e9

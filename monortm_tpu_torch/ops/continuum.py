@@ -20,8 +20,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from monortm_tpu import constants as cst
-from monortm_tpu.data import loader
+from monortm_tpu_torch import constants as cst
+from monortm_tpu_torch.data import loader
 from monortm_tpu_torch.ops.arith import rdiv
 from monortm_tpu_torch.ops.planck import radfn
 from monortm_tpu_torch.ops.xint import (DeviceXintPlan, XintPlan,

@@ -18,8 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from monortm_tpu import constants as cst
-from monortm_tpu.lines import PackedCatalog
+from monortm_tpu_torch import constants as cst
+from monortm_tpu_torch.lines import PackedCatalog
 
 DELTNU_CUT = 25.0
 TEMPLC = (200.0, 250.0, 296.0, 340.0)

@@ -11,23 +11,29 @@ padding).
 The sum runs in `VOIGT_KERNEL`: the CUDA kernel `csrc/linesum.cu` for CUDA
 tensors, and for CPU tensors `line_sum_plain`, a loop over wavenumber
 tiles x candidate slots evaluating the Pallas `_kernel` math (:143-232)
-on [L, wt, nt] blocks.
+on [L, wt, nt] blocks.  Its adjoint is the CUDA kernel
+`csrc/linesum_bwd.cu` over the reverse candidate map (`reverse_map`), and
+for CPU tensors `line_sum_bwd_plain`, the vjp of the same blocks
+(`_bwd_kernel`, :328-427).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from monortm_tpu_torch.ops.arith import rdiv
 from monortm_tpu_torch.ops.linesum_kernel import (FLAGS, PER_L, PER_LN,
-                                                  LineSumKernel)
+                                                  LineSumKernel, reverse_map)
 from monortm_tpu_torch.ops.lineshape import (DELTNU_CUT, LineConfig,
                                              MOL_CO2, MOL_O2, line_params)
 from monortm_tpu_torch.ops.voigt import sdvoigt, xlorentz
 
 __all__ = ["FLAGS", "PER_L", "PER_LN", "VOIGT_KERNEL", "line_od_forward",
-           "line_sum_plain", "precompute"]
+           "line_sum_bwd_plain", "line_sum_plain", "precompute",
+           "reverse_map"]
 
 # f32(1) / f32(pi), as the Pallas kernel forms it
 _INV_PI = float(np.float32(1.0) / np.float32(np.pi))
@@ -100,8 +106,9 @@ def _branch_trees(d1, dsum, k1, k2, k3, ya, yb, fl, within, mirror, chi_fn):
                        torch.where(fl["co2"], sls_co2, sls_other))
 
 
-def _contrib_voigt(wn_hi, wn_lo, g, fl, chi_fn):
-    """One [L, wt, nt] block of the Pallas `_kernel` (:143-228)."""
+def _contrib_voigt(wn_hi, wn_lo, g, fl, chi_fn, f32_fallback=False):
+    """One [L, wt, nt] block of the Pallas `_kernel` (:143-228).
+    f32_fallback: see `ops.voigt.sdvoigt`."""
     nu_hi, nu_lo, sdep = g["nu_hi"], g["nu_lo"], g["sdep"]
     shift, hw, ad = g["shift"], g["hw"], g["ad"]
     xnu = nu_hi + (nu_lo + shift)
@@ -122,7 +129,8 @@ def _contrib_voigt(wn_hi, wn_lo, g, fl, chi_fn):
     pi_hw2 = hw * hw
 
     def K(dd):
-        dv = sdvoigt(dd, hw, ad, torch.broadcast_to(sdep, dd.shape))
+        dv = sdvoigt(dd, hw, ad, torch.broadcast_to(sdep, dd.shape),
+                     f32_fallback=f32_fallback)
         return torch.where(use_lor, hw_pi / (pi_hw2 + dd * dd), dv)
 
     sls = _branch_trees(d1, dsum, K(d1), K(dsum), k3, g["ya"], g["yb"], fl,
@@ -160,6 +168,47 @@ def sweep_plain(contrib, pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
     return out
 
 
+def sweep_bwd_plain(contrib, pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
+                    nt: int, wt: int, n_mol: int, g, chi_fn=None,
+                    wrt=PER_LN):
+    """The plain adjoint of `sweep_plain` for a cotangent g [L, Wp, n_mol].
+
+    Walks the same blocks in the same order; each block contracts g's
+    tile with the one-hot (gbar = g_tile @ onehot^T, the transpose of the
+    forward's attribution), re-evaluates `contrib` under autograd and
+    takes its vector-Jacobian product against gbar, as the Pallas
+    `_bwd_kernel` does with jax.vjp (:372-427).  Returns the cotangents
+    of the operands named in `wrt`, each [L, N], in the operands' dtype
+    (float32 on the model's path; float64 operands give a reference)."""
+    L, n = pre["stild"].shape
+    dev, dtype = pre["stild"].device, pre["stild"].dtype
+    onehot = ((mol[:, None] - 1) == torch.arange(n_mol, device=dev)
+              ).to(dtype)                                     # [N, n_mol]
+    cm = cand_map.cpu().numpy()
+    cv = cand_valid.cpu().numpy()
+    out = {k: torch.zeros((L, n), dtype=dtype, device=dev) for k in wrt}
+    for i in range(cm.shape[0]):
+        ws = slice(i * wt, (i + 1) * wt)
+        wh, wl = wn_hi[ws][None, :, None], wn_lo[ws][None, :, None]
+        for j in range(cm.shape[1]):
+            if not cv[i, j]:
+                continue
+            sl = slice(int(cm[i, j]) * nt, (int(cm[i, j]) + 1) * nt)
+            gbar = torch.matmul(g[:, ws], onehot[sl].T)      # [L, wt, nt]
+            blk = {k: pre[k][sl][None, None, :] for k in PER_L}
+            blk.update({k: pre[k][:, sl][:, None, :].detach()
+                        for k in PER_LN})
+            fl = {k: pre["flags"][k][sl][None, None, :] > 0.5 for k in FLAGS}
+            with torch.enable_grad():
+                leaves = [blk[k].requires_grad_() for k in wrt]
+                ds = torch.autograd.grad(contrib(wh, wl, blk, fl, chi_fn),
+                                         leaves, gbar, allow_unused=True)
+            for k, d in zip(wrt, ds):
+                if d is not None:
+                    out[k][:, sl] += d[:, 0, :]
+    return out
+
+
 def line_sum_plain(pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
                    nt: int, wt: int, n_mol: int, chi_fn=None):
     """Plain PyTorch version of the VOIGT=true kernel."""
@@ -167,13 +216,26 @@ def line_sum_plain(pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
                        cand_valid, nt, wt, n_mol, chi_fn)
 
 
-VOIGT_KERNEL = LineSumKernel("voigt", voigt=True, plain=line_sum_plain)
+def line_sum_bwd_plain(pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
+                       nt: int, wt: int, n_mol: int, g, chi_fn=None,
+                       f32_fallback: bool = False):
+    """Plain PyTorch version of the VOIGT=true adjoint kernel: the seven
+    cotangents (PER_LN order) for a cotangent g [L, Wp, n_mol].
+    f32_fallback: see `ops.voigt.sdvoigt`."""
+    contrib = functools.partial(_contrib_voigt, f32_fallback=f32_fallback)
+    d = sweep_bwd_plain(contrib, pre, mol, wn_hi, wn_lo, cand_map,
+                        cand_valid, nt, wt, n_mol, g, chi_fn)
+    return tuple(d[k] for k in PER_LN)
+
+
+VOIGT_KERNEL = LineSumKernel("voigt", voigt=True, plain=line_sum_plain,
+                             plain_bwd=line_sum_bwd_plain)
 
 
 def line_od_forward(tiled_cat: dict, wn_hi, wn_lo, cand_map, cand_valid,
                     nt: int, wt: int, p, t, wk, wbrod, scor_flat,
                     cfg: LineConfig, n_mol: int,
-                    kernel: LineSumKernel = VOIGT_KERNEL):
+                    kernel: LineSumKernel = VOIGT_KERNEL, rev=None):
     """Line shape-function sum sf [L, Wp, n_mol] over a block-sparse plan.
 
     tiled_cat: device catalog in the tiled line order (nu-sorted windowed
@@ -184,9 +246,14 @@ def line_od_forward(tiled_cat: dict, wn_hi, wn_lo, cand_map, cand_valid,
       (wn tile, slot) and its validity.
     p/t/wk/wbrod/scor_flat carry a single flat layer axis L, on the same
     device.  `kernel` picks the instantiation (VOIGT_KERNEL, or the
-    all-Lorentz one of ops.linesum_lorentz).
+    all-Lorentz one of ops.linesum_lorentz).  rev: the plan's reverse map
+    (rev_map, rev_valid) on the device, for the adjoint kernel.
+
+    Differentiable in p, t, wk, wbrod and scor_flat: the sum's backward
+    is the adjoint kernel on CUDA tensors and the plain adjoint on CPU
+    tensors.
     """
     pre = precompute(tiled_cat, p, t, wk, wbrod, scor_flat, cfg,
                      torch.float32)
     return kernel(pre, tiled_cat["mol"], wn_hi, wn_lo, cand_map, cand_valid,
-                  nt, wt, n_mol, cfg.chi_fn)
+                  nt, wt, n_mol, cfg.chi_fn, rev=rev)

@@ -1,15 +1,19 @@
-"""Build, bind and launch the CUDA line-sum kernel (`csrc/linesum.cu`).
+"""Build, bind and launch the CUDA line-sum kernels (`csrc/`).
 
-The kernel is compiled at first use with `nvcc` into `build/` at the
-repository root, under a name keyed by a hash of the source and the
-flags, and loaded with ctypes through its plain C entry point.  Importing
-this module needs neither nvcc nor a GPU.
+Two sources, each a shared library with a plain C entry point: the
+forward sum `linesum.cu` and its adjoint `linesum_bwd.cu`; both include
+the device math of `linesum_math.cuh`.  They are compiled at first use
+with `nvcc`, one process per source started together, into `build/` at
+the repository root, under names keyed by a hash of the sources, the
+header and the flags, and loaded with ctypes.  Importing this module
+needs neither nvcc nor a GPU.
 
-`LineSumKernel` is the wrapper: CPU tensors go to the plain PyTorch
-version given to it; CUDA tensors launch the kernel (or raise — there is
-no fallback).  Each instance counts its own kernel launches in
-`.launches`.  It is a `torch.autograd.Function` whose backward raises: the
-adjoint kernel is not ported yet.
+`LineSumKernel` is the wrapper of one instantiation (VOIGT true/false):
+CPU tensors go to the plain PyTorch versions given to it; CUDA tensors
+launch the kernels (or raise — there is no fallback).  Each instance
+counts its own forward launches in `.launches` and its adjoint launches
+in `.bwd_launches`.  The sum is a `torch.autograd.Function` whose
+backward is the adjoint kernel.
 """
 
 from __future__ import annotations
@@ -22,9 +26,12 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "linesum.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = {"forward": CSRC / "linesum.cu", "backward": CSRC / "linesum_bwd.cu"}
+HEADERS = (CSRC / "linesum_math.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -45,148 +52,268 @@ def _nvcc() -> str:
     path = Path(home) / "bin" / "nvcc"
     if not path.exists():
         raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
-                           "line-sum kernel needs the CUDA toolkit")
+                           "line-sum kernels need the CUDA toolkit")
     return str(path)
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel (if this source/flag hash is not built yet) and
-    return the shared library's path."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"linesum-{key[:16]}.so"
-    if lib.exists():
-        return lib
+def _lib_path(name: str) -> Path:
+    src = SOURCES[name]
+    blob = src.read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
+    key = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{src.stem}-{key[:16]}.so"
+
+
+def build(verbose: bool = False) -> dict[str, Path]:
+    """Compile every source whose hash is not built yet, one nvcc each,
+    all started together, and return {name: shared library path}."""
+    libs = {name: _lib_path(name) for name in SOURCES}
+    todo = [name for name, lib in libs.items() if not lib.exists()]
+    if not todo:
+        return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, str(SOURCE)]
+    procs = {}
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        if verbose:
-            print(res.stdout + res.stderr)
-        os.replace(tmp, lib)           # atomic: a reader sees all or nothing
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS,
+                   *(("-Xptxas", "-v") if verbose else ()),
+                   "-o", tmp, str(SOURCES[name])]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc {SOURCES[name].name} failed "
+                              f"({proc.returncode}):\n{out}")
+            else:
+                if verbose:
+                    print(f"{SOURCES[name].name}:\n{out}")
+                os.replace(tmp, libs[name])    # atomic: all or nothing
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
+        for tmp, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return libs
 
 
 class _Library:
-    """The loaded shared library (loaded once, at first launch)."""
+    """The loaded entry points (loaded once, at first launch)."""
 
-    handle = None
+    fns: dict = {}
 
     @classmethod
-    def get(cls):
-        if cls.handle is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.monortm_linesum_forward
+    def get(cls, name: str):
+        if not cls.fns:
+            libs = build()
             P, I = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = ([I, P, P, I, I] + [P] * 14 + [I] * 5 + [P, P])
-            fn.restype = I
-            cls.handle = fn
-        return cls.handle
+            fwd = ctypes.CDLL(str(libs["forward"])).monortm_linesum_forward
+            fwd.argtypes = [I, P, P, I, I] + [P] * 14 + [I] * 5 + [P, P]
+            fwd.restype = I
+            bwd = ctypes.CDLL(str(libs["backward"])).monortm_linesum_backward
+            bwd.argtypes = ([I, P, P, I, I, I] + [P] * 15 + [I] * 5
+                            + [P] * 7 + [P])
+            bwd.restype = I
+            cls.fns = {"forward": fwd, "backward": bwd}
+        return cls.fns[name]
+
+
+def _check_f32(dev, **tensors):
+    for k, v in tensors.items():
+        if v.device != dev or v.dtype != torch.float32 \
+                or not v.is_contiguous():
+            raise ValueError(f"line-sum operand {k}: need a contiguous "
+                             f"float32 tensor on {dev}, got {v.dtype} on "
+                             f"{v.device}")
+
+
+def _line_operands(pre, mol, nt: int):
+    """Checks shared by both kernels; returns (L, N, flag bits, 0-based
+    molecule) for the launch."""
+    dev = pre["stild"].device
+    L, n = pre["stild"].shape
+    _check_f32(dev, **{k: pre[k] for k in PER_LN + PER_L})
+    for k in PER_LN:
+        if pre[k].shape != (L, n):
+            raise ValueError(f"{k}: shape {tuple(pre[k].shape)} != {(L, n)}")
+    for k in PER_L:
+        if pre[k].shape != (n,):
+            raise ValueError(f"{k}: shape {tuple(pre[k].shape)} != {(n,)}")
+    if mol.shape != (n,) or mol.device != dev:
+        raise ValueError(f"mol: need [{n}] on {dev}")
+    if n % nt or not 0 < nt <= 1024 or nt % 32:
+        raise ValueError(f"unsupported line tile nt={nt} for {n} lines")
+    bits = torch.zeros(n, dtype=torch.int32, device=dev)
+    for k, b in FLAG_BITS.items():
+        bits |= (pre["flags"][k] > 0.5).to(torch.int32) * b
+    return L, n, bits, (mol - 1).to(torch.int32).contiguous()
+
+
+def _check_maps(dev, names, m, valid, rows: int | None = None):
+    """A (map, validity) pair of int32 [rows, slots] tensors."""
+    for name, v in zip(names, (m, valid)):
+        if v.device != dev or v.dtype != torch.int32 \
+                or not v.is_contiguous() or v.ndim != 2 \
+                or v.shape != valid.shape \
+                or (rows is not None and v.shape[0] != rows):
+            raise ValueError(f"{name}: need contiguous int32 [{rows or 'rows'}"
+                             f", slots] tensors of one shape on {dev}")
+
+
+def _check_wn(dev, wn_hi, wn_lo, n_wt: int, wt: int):
+    _check_f32(dev, wn_hi=wn_hi, wn_lo=wn_lo)
+    if wn_hi.shape != (n_wt * wt,) or wn_lo.shape != (n_wt * wt,):
+        raise ValueError(f"wn_hi/wn_lo: need [{n_wt * wt}] for {n_wt} "
+                         f"tiles of {wt}")
+    if not 0 < wt <= 1024 or wt % 32:
+        raise ValueError(f"unsupported wavenumber tile wt={wt}")
+
+
+def _stream(dev):
+    with torch.cuda.device(dev):
+        return torch.cuda.current_stream(dev).cuda_stream
 
 
 class LineSumKernel:
-    """One instantiation of the kernel (VOIGT true or false) with its plain
-    PyTorch version and its launch count.
+    """One instantiation of the kernels (VOIGT true or false) with their
+    plain PyTorch versions and launch counts.
 
     Call with the `ops.linesum.precompute` operands and the plan:
     pre (dict), mol [N] int (1-based molecule id), wn_hi/wn_lo [Wp] f32,
-    cand_map/cand_valid [n_wt, n_cand] int32, nt, wt, n_mol, and the
-    optional CO2 chi hook (plain version only).  Returns sf [L, Wp, n_mol]
-    f32.
+    cand_map/cand_valid [n_wt, n_cand] int32, nt, wt, n_mol, the optional
+    CO2 chi hook (plain versions only) and the plan's reverse map
+    rev = (rev_map, rev_valid), which the adjoint kernel needs.  Returns
+    sf [L, Wp, n_mol] f32, differentiable in the seven PER_LN operands.
     """
 
-    def __init__(self, name: str, voigt: bool, plain):
+    def __init__(self, name: str, voigt: bool, plain, plain_bwd):
         self.name = name
         self.voigt = voigt
         self.plain = plain
+        self.plain_bwd = plain_bwd
         self.launches = 0
+        self.bwd_launches = 0
 
     def __call__(self, pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
-                 nt: int, wt: int, n_mol: int, chi_fn=None):
+                 nt: int, wt: int, n_mol: int, chi_fn=None, rev=None):
         per_ln = tuple(pre[k] for k in PER_LN)
         return _LineSum.apply(self, pre, mol, wn_hi, wn_lo, cand_map,
-                              cand_valid, nt, wt, n_mol, chi_fn, *per_ln)
+                              cand_valid, nt, wt, n_mol, chi_fn, rev,
+                              *per_ln)
 
     def launch(self, pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
                nt: int, wt: int, n_mol: int):
-        """The CUDA launch: checks every operand, allocates the output,
-        launches on the current stream and raises if the launch failed."""
+        """The forward CUDA launch: checks every operand, allocates the
+        output, launches on the current stream and raises if the launch
+        failed."""
         dev = pre["stild"].device
-        L, n = pre["stild"].shape
+        L, n, bits, mol0 = _line_operands(pre, mol, nt)
+        _check_maps(dev, ("cand_map", "cand_valid"), cand_map, cand_valid)
         n_wt, n_cand = cand_map.shape
-        f32 = {k: pre[k] for k in PER_LN + PER_L}
-        f32.update(wn_hi=wn_hi, wn_lo=wn_lo)
-        for k, v in f32.items():
-            if v.device != dev or v.dtype != torch.float32 \
-                    or not v.is_contiguous():
-                raise ValueError(f"line-sum operand {k}: need a contiguous "
-                                 f"float32 tensor on {dev}, got {v.dtype} "
-                                 f"on {v.device}")
-        for k in PER_LN:
-            if pre[k].shape != (L, n):
-                raise ValueError(f"{k}: shape {tuple(pre[k].shape)} != "
-                                 f"{(L, n)}")
-        for k in PER_L:
-            if pre[k].shape != (n,):
-                raise ValueError(f"{k}: shape {tuple(pre[k].shape)} != {(n,)}")
-        for k, v in (("cand_map", cand_map), ("cand_valid", cand_valid)):
-            if v.device != dev or v.dtype != torch.int32 \
-                    or not v.is_contiguous() or v.shape != (n_wt, n_cand):
-                raise ValueError(f"{k}: need contiguous int32 "
-                                 f"[{n_wt}, {n_cand}] on {dev}")
-        if wn_hi.shape != (n_wt * wt,) or wn_lo.shape != (n_wt * wt,):
-            raise ValueError(f"wn_hi/wn_lo: need [{n_wt * wt}] for {n_wt} "
-                             f"tiles of {wt}")
-        if n % nt or not 0 < wt <= 1024 or wt % 32:
-            raise ValueError(f"unsupported tiles nt={nt} wt={wt} for "
-                             f"{n} lines")
-        if mol.shape != (n,) or mol.device != dev:
-            raise ValueError(f"mol: need [{n}] on {dev}")
-
-        bits = torch.zeros(n, dtype=torch.int32, device=dev)
-        for k, b in FLAG_BITS.items():
-            bits |= (pre["flags"][k] > 0.5).to(torch.int32) * b
-        mol0 = (mol - 1).to(torch.int32).contiguous()
+        _check_wn(dev, wn_hi, wn_lo, n_wt, wt)
         out = torch.empty((L, n_wt * wt, n_mol), dtype=torch.float32,
                           device=dev)
-        fn = _Library.get()
         ptr = lambda v: v.data_ptr()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = fn(int(self.voigt), ptr(cand_map), ptr(cand_valid), n_wt,
-                    n_cand, ptr(wn_hi), ptr(wn_lo),
-                    *(ptr(pre[k]) for k in PER_L), ptr(bits), ptr(mol0),
-                    *(ptr(pre[k]) for k in PER_LN),
-                    L, n, nt, wt, n_mol, ptr(out), stream)
+        rc = _Library.get("forward")(
+            int(self.voigt), ptr(cand_map), ptr(cand_valid), n_wt, n_cand,
+            ptr(wn_hi), ptr(wn_lo), *(ptr(pre[k]) for k in PER_L),
+            ptr(bits), ptr(mol0), *(ptr(pre[k]) for k in PER_LN),
+            L, n, nt, wt, n_mol, ptr(out), _stream(dev))
         self.launches += 1
         if rc != 0:
             raise RuntimeError(f"{self.name} line-sum kernel launch failed: "
                                f"CUDA error {rc}")
         return out
 
+    def launch_bwd(self, pre, mol, wn_hi, wn_lo, rev_map, rev_valid,
+                   nt: int, wt: int, n_mol: int, g):
+        """The adjoint CUDA launch for a cotangent g [L, Wp, n_mol]:
+        returns the seven cotangents in PER_LN order (None for ad and k3v
+        with VOIGT=false, whose sum reads neither)."""
+        dev = pre["stild"].device
+        L, n, bits, mol0 = _line_operands(pre, mol, nt)
+        k_tiles = n // nt
+        _check_maps(dev, ("rev_map", "rev_valid"), rev_map, rev_valid,
+                    k_tiles)
+        n_rev = rev_map.shape[1]
+        _check_f32(dev, g=g)
+        if g.ndim != 3 or g.shape[0] != L or g.shape[2] != n_mol \
+                or g.shape[1] % wt:
+            raise ValueError(f"g: need [{L}, n_wt*{wt}, {n_mol}], got "
+                             f"{tuple(g.shape)}")
+        n_wt = g.shape[1] // wt
+        _check_wn(dev, wn_hi, wn_lo, n_wt, wt)
+        wrt = [k for k in PER_LN if self.voigt or k not in ("ad", "k3v")]
+        outs = {k: torch.empty((L, n), dtype=torch.float32, device=dev)
+                for k in wrt}
+        ptr = lambda v: 0 if v is None else v.data_ptr()
+        rc = _Library.get("backward")(
+            int(self.voigt), ptr(rev_map), ptr(rev_valid), k_tiles, n_rev,
+            n_wt, ptr(wn_hi), ptr(wn_lo), *(ptr(pre[k]) for k in PER_L),
+            ptr(bits), ptr(mol0), *(ptr(pre[k]) for k in PER_LN), ptr(g),
+            L, n, nt, wt, n_mol, *(ptr(outs.get(k)) for k in PER_LN),
+            _stream(dev))
+        self.bwd_launches += 1
+        if rc != 0:
+            raise RuntimeError(f"{self.name} line-sum adjoint kernel launch "
+                               f"failed: CUDA error {rc}")
+        return tuple(outs.get(k) for k in PER_LN)
+
+
+def reverse_map(cand_map: np.ndarray, cand_valid: np.ndarray,
+                k_tiles: int):
+    """Transpose of the candidate map: for each catalog line tile, the wn
+    tiles that list it as a candidate, in ascending order, packed left,
+    with a validity mask (host numpy; `linesum_pallas._reverse_map`).
+    The adjoint kernel walks one row of it per block."""
+    cm = np.asarray(cand_map)
+    cv = np.asarray(cand_valid)
+    lists: list[list[int]] = [[] for _ in range(k_tiles)]
+    for i in range(cm.shape[0]):
+        for j in range(cm.shape[1]):
+            if cv[i, j]:
+                lists[cm[i, j]].append(i)
+    n_rev = max(max((len(x) for x in lists), default=1), 1)
+    rmap = np.zeros((k_tiles, n_rev), np.int32)
+    rvalid = np.zeros((k_tiles, n_rev), np.int32)
+    for kk, x in enumerate(lists):
+        rmap[kk, :len(x)] = x
+        rvalid[kk, :len(x)] = 1
+    return rmap, rvalid
+
+
+def _device_kind(kernel, dev):
+    if dev.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{kernel.name} line sum: no kernel for device "
+                           f"{dev}")
+    return dev.type
+
 
 class _LineSum(torch.autograd.Function):
-    """Forward through the kernel (CUDA) or the plain version (CPU)."""
+    """Forward through the kernel (CUDA) or the plain version (CPU); the
+    backward through the adjoint kernel (CUDA) or the plain adjoint
+    (CPU)."""
 
     @staticmethod
     def forward(ctx, kernel, pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
-                nt, wt, n_mol, chi_fn, *per_ln):
+                nt, wt, n_mol, chi_fn, rev, *per_ln):
         dev = pre["stild"].device
-        if dev.type == "cpu":
+        ctx.kernel = kernel
+        ctx.plan = (mol, wn_hi, wn_lo, cand_map, cand_valid, nt, wt, n_mol,
+                    chi_fn, rev)
+        ctx.static = {k: pre[k] for k in PER_L}
+        ctx.static["flags"] = pre["flags"]
+        ctx.save_for_backward(*per_ln)
+        if _device_kind(kernel, dev) == "cpu":
             return kernel.plain(pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
                                 nt, wt, n_mol, chi_fn)
-        if dev.type != "cuda":
-            raise RuntimeError(f"{kernel.name} line sum: no kernel for "
-                               f"device {dev}")
         if chi_fn is not None:
             # a Python callable cannot enter the kernel (lineshape.py:43-51)
             raise NotImplementedError(
@@ -196,7 +323,21 @@ class _LineSum(torch.autograd.Function):
                              nt, wt, n_mol)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "line-sum adjoint not yet ported (B2: linesum_pallas._bwd_kernel)")
-
+    def backward(ctx, g):
+        kernel = ctx.kernel
+        mol, wn_hi, wn_lo, cand_map, cand_valid, nt, wt, n_mol, chi_fn, \
+            rev = ctx.plan
+        pre = dict(zip(PER_LN, ctx.saved_tensors))
+        pre.update(ctx.static)
+        g = g.contiguous()
+        if _device_kind(kernel, g.device) == "cpu":
+            grads = kernel.plain_bwd(pre, mol, wn_hi, wn_lo, cand_map,
+                                     cand_valid, nt, wt, n_mol, g, chi_fn)
+        else:
+            if rev is None:
+                raise ValueError(f"{kernel.name} line-sum adjoint: the "
+                                 "kernel needs the plan's reverse map "
+                                 "(rev=(rev_map, rev_valid))")
+            grads = kernel.launch_bwd(pre, mol, wn_hi, wn_lo, *rev, nt, wt,
+                                      n_mol, g)
+        return (None,) * 12 + tuple(grads)

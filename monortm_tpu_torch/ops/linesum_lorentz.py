@@ -6,7 +6,9 @@ kernel takes the Lorentz branch, so the sum needs no SD-Voigt machinery.
 `all_lorentz_predicate` tests that condition; `LORENTZ_KERNEL` is the
 VOIGT=false instantiation of the CUDA kernel `csrc/linesum.cu`, which
 replaces the JAX package's `line_od_lorentz_xla` (:63-220), with
-`lorentz_sum_plain` as its plain PyTorch version.  It runs through
+`lorentz_sum_plain` as its plain PyTorch version; its adjoint is the
+VOIGT=false instantiation of `csrc/linesum_bwd.cu`, with
+`lorentz_sum_bwd_plain` beside it.  It runs through
 `ops.linesum.line_od_forward(..., kernel=LORENTZ_KERNEL)`.
 
 EXACTNESS: the engine equals the full kernel only where the predicate
@@ -18,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from monortm_tpu_torch.ops.linesum import _branch_trees, sweep_plain
+from monortm_tpu_torch.ops.linesum import (PER_LN, _branch_trees,
+                                           sweep_bwd_plain, sweep_plain)
 from monortm_tpu_torch.ops.linesum_kernel import LineSumKernel
 from monortm_tpu_torch.ops.lineshape import (DELTNU_CUT, LineConfig,
                                              line_params)
@@ -69,6 +72,21 @@ def lorentz_sum_plain(pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
                        cand_valid, nt, wt, n_mol, chi_fn)
 
 
+# the operands the Lorentz sum reads: it never reads ad or k3v
+_LORENTZ_WRT = ("shift", "stild", "hw", "ya", "yb")
+
+
+def lorentz_sum_bwd_plain(pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
+                          nt: int, wt: int, n_mol: int, g, chi_fn=None):
+    """Plain PyTorch version of the VOIGT=false adjoint kernel: the seven
+    cotangents in PER_LN order, None for ad and k3v."""
+    d = sweep_bwd_plain(_contrib_lorentz, pre, mol, wn_hi, wn_lo, cand_map,
+                        cand_valid, nt, wt, n_mol, g, chi_fn,
+                        wrt=_LORENTZ_WRT)
+    return tuple(d.get(k) for k in PER_LN)
+
+
 LORENTZ_KERNEL = LineSumKernel("lorentz", voigt=False,
-                               plain=lorentz_sum_plain)
+                               plain=lorentz_sum_plain,
+                               plain_bwd=lorentz_sum_bwd_plain)
 

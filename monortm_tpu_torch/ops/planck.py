@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from monortm_tpu import constants as c
+from monortm_tpu_torch import constants as c
 from monortm_tpu_torch.ops.arith import rdiv
 
 

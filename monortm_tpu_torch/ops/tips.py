@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from monortm_tpu.data import loader
+from monortm_tpu_torch.data import loader
 from monortm_tpu_torch.ops.arith import rdiv
 
 

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from monortm_tpu import constants as c
+from monortm_tpu_torch import constants as c
 
 _SQRT_LN2 = c.SQRT_LN2
 _RSQRT_PI_LN2 = (c.LN2 / c.PI) ** 0.5   # sqrt(ln2/pi)
@@ -163,12 +163,15 @@ def _safe_sqrt(u):
     return torch.where(u > 0.0, torch.sqrt(torch.where(u > 0.0, u, 1.0)), 0.0)
 
 
-def sdvoigt(deltnu, alphal, alphad, sdep, sdep_tiny: float = 1.0e-4):
+def sdvoigt(deltnu, alphal, alphad, sdep, sdep_tiny: float = 1.0e-4,
+            f32_fallback: bool = False):
     """Speed-dependent Voigt (Boone et al. 2011 two-point difference).
 
     Falls back to the plain Voigt where |sdep| <= 1e-4 (modm.f90:1017-1081)
     and, in float32, where delta > 1e6 (the two-point construction cancels
     catastrophically there; the speed-dependent correction is negligible).
+    f32_fallback takes that fallback in float64 too: a float64 evaluation
+    of what float32 computes, as a reference for it.
     """
     use_sd = torch.abs(sdep) > sdep_tiny
     sdep_safe = torch.where(use_sd, sdep, 1.0)
@@ -184,8 +187,14 @@ def sdvoigt(deltnu, alphal, alphad, sdep, sdep_tiny: float = 1.0e-4):
     dtype = torch.promote_types(torch.promote_types(deltnu.dtype,
                                                     alphal.dtype),
                                 alphad.dtype)
-    if dtype != torch.float64:
+    if dtype != torch.float64 or f32_fallback:
         use_sd = use_sd & (delta < 1.0e6)
+    # the two-point construction is evaluated at delta = 0 where it is not
+    # selected: at delta > 1e6 its float32 value can be NaN, and the
+    # backward of the select below would turn 0 * NaN into a NaN gradient
+    # (the JAX version's gradient is NaN there).  Selected values are
+    # unchanged.
+    delta = torch.where(use_sd, delta, 0.0)
     alfadelta = alfa + delta
 
     tmp = _safe_sqrt(alfadelta * alfadelta + beta * beta)

@@ -1,9 +1,9 @@
 """Synthetic fixtures for tests, the chip smoke run and benchmarks.
 
-jax-free copies of `monortm_tpu.testing.synthetic_catalog_mw` and
-`synthetic_state`: the same numpy code, drawn from the same
-`default_rng(seed)` in the same order, so both packages see identical
-inputs.
+Copies of `monortm_tpu.testing.synthetic_catalog_mw` and
+`synthetic_state` on the port's own catalog packer: the same numpy code,
+drawn from the same `default_rng(seed)` in the same order, so both
+packages see identical inputs.
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from monortm_tpu.io.tape3 import RawLines
-from monortm_tpu.lines import PackedCatalog, group, pack, resolve
+from monortm_tpu_torch.io.tape3 import RawLines
+from monortm_tpu_torch.lines import PackedCatalog, group, pack, resolve
 from monortm_tpu_torch.convert import state_from_numpy
 from monortm_tpu_torch.types import LayerState
 
@@ -76,7 +76,7 @@ def synthetic_catalog_mw(n_h2o: int = 64, n_o2: int = 48, seed: int = 0,
 
 
 def synthetic_state(nlay: int = 26, batch: int | None = None,
-                    seed: int = 0, *, device,
+                    seed: int = 0, *, device="cuda",
                     dtype: torch.dtype = torch.float64) -> LayerState:
     """A US-standard-like layered state (surface -> top)."""
     rng = np.random.default_rng(seed)

@@ -1,0 +1,99 @@
+"""The port's copies of the JAX package's jax-free host modules.
+
+The port imports nothing of `monortm_tpu`; it carries its own copies of
+the constants, the catalog packer (`lines`), `io.tape3.RawLines`, the
+table loader and its `.npz` tables.  These tests hold each copy equal to
+its original, and scan the port's sources for an import of the JAX
+package.
+"""
+
+import hashlib
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from monortm_tpu import constants as j_constants
+from monortm_tpu import lines as j_lines
+from monortm_tpu.data import loader as j_loader
+from monortm_tpu.testing import synthetic_catalog_mw as j_catalog
+from monortm_tpu_torch import constants, lines
+from monortm_tpu_torch.data import loader
+from monortm_tpu_torch.testing import synthetic_catalog_mw
+
+ROOT = Path(__file__).resolve().parents[1]
+TABLES = sorted((ROOT / "monortm_tpu" / "data" / "tables").glob("*.npz"))
+
+
+def _sha(path):
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+@pytest.mark.parametrize("table", [p.name for p in TABLES])
+def test_tables_byte_identical(table):
+    mine = ROOT / "monortm_tpu_torch" / "data" / "tables" / table
+    assert _sha(mine) == _sha(ROOT / "monortm_tpu" / "data" / "tables" / table)
+
+
+def test_table_sets_identical():
+    mine = sorted(p.name for p in
+                  (ROOT / "monortm_tpu_torch" / "data" / "tables").glob("*"))
+    assert mine == [p.name for p in TABLES] and len(mine) == 4
+
+
+def test_loader_reads_the_same_arrays():
+    for fn in ("mt_ckd", "isotopes", "tips_tables"):
+        a, b = getattr(loader, fn)(), getattr(j_loader, fn)()
+        assert a.keys() == b.keys(), fn
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{fn}.{k}")
+    assert loader.MOLECULE_NAMES == j_loader.MOLECULE_NAMES
+    assert loader.TABLE_DIR != j_loader.TABLE_DIR
+
+
+def test_constants_equal():
+    names = [n for n in vars(j_constants)
+             if n.isupper() and isinstance(getattr(j_constants, n), float)]
+    assert len(names) > 20
+    for n in names:
+        assert getattr(constants, n) == getattr(j_constants, n), n
+    assert constants.grav_const(30.0) == j_constants.grav_const(30.0)
+
+
+@pytest.mark.parametrize("kw", [dict(n_h2o=40, n_o2=12),
+                                dict(n_h2o=64, n_o2=0, seed=3, tile=64)])
+def test_catalog_equal_field_by_field(kw):
+    mine, ref = synthetic_catalog_mw(**kw), j_catalog(**kw)
+    assert isinstance(mine, lines.PackedCatalog)
+    assert not isinstance(mine, j_lines.PackedCatalog)
+    fields = [f.name for f in j_lines.PackedCatalog.__dataclass_fields__
+              .values()]
+    assert fields == list(lines.PackedCatalog.__dataclass_fields__)
+    for f in fields:
+        a, b = getattr(mine, f), getattr(ref, f)
+        np.testing.assert_array_equal(a, b, err_msg=f)
+        assert np.asarray(a).dtype == np.asarray(b).dtype, f
+
+
+def test_group_resolve_match_on_raw_lines():
+    raw = j_catalog(n_h2o=30, n_o2=10, raw_lines=True)
+    mine_raw = synthetic_catalog_mw(n_h2o=30, n_o2=10, raw_lines=True)
+    a, b = lines.resolve(lines.group(mine_raw)), j_lines.resolve(
+        j_lines.group(raw))
+    for f in j_lines.ResolvedLines.__dataclass_fields__:
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                      err_msg=f)
+
+
+_IMPORT = re.compile(r"^\s*(from|import)\s+monortm_tpu(\.|\s|$)", re.M)
+
+
+def test_port_sources_never_import_the_jax_package():
+    files = sorted((ROOT / "monortm_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for path in files:
+        text = path.read_text()
+        assert not _IMPORT.search(text), path
+        assert not re.search(r"^\s*(from|import)\s+jax", text, re.M), path

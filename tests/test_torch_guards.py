@@ -1,7 +1,9 @@
 """Guards on the port's boundaries.
 
-- `monortm_tpu_torch` runs its forward pass without importing jax (the
-  machine with the GPU has no JAX);
+- `monortm_tpu_torch` runs its forward pass and a backward pass through
+  it without importing jax or any module of the JAX package `monortm_tpu`
+  (the machine with the GPU has no JAX, and the port keeps its own copies
+  of the host modules it needs);
 - `chip_smoke.py` fails, and prints no result, where there is no GPU;
 - importing the kernel module needs neither nvcc nor triton.
 """
@@ -27,9 +29,13 @@ m = MonoRTM(wn, float(wn[1] - wn[0]), synthetic_catalog_mw(n_h2o=16, n_o2=8),
 s = synthetic_state(nlay=4, batch=2, device="cpu", dtype=torch.float32)
 engine, lor = m.engine_split(s)
 emis = torch.full((len(wn),), 0.95)
+s.t.requires_grad_()
 tb = m.tb(s, 288.0, emis, 1.0 - emis, irt=3, engine=engine, lor_layers=lor)
 assert tb.shape == (2, 32) and bool(torch.isfinite(tb).all())
-print(sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")))
+tb.sum().backward()
+assert bool(torch.isfinite(s.t.grad).all()) and bool((s.t.grad != 0).any())
+print(sorted(k for k in sys.modules
+             if k.startswith("jax") or k.split(".")[0] == "monortm_tpu"))
 """
 
 

@@ -26,31 +26,36 @@ from monortm_tpu.ops.linesum_lorentz import (
     all_lorentz_predicate as j_predicate, line_od_lorentz_xla)
 from monortm_tpu.ops.linesum_pallas import line_od_pallas
 from monortm_tpu.ops.linesum_pallas import precompute as j_precompute
-from monortm_tpu.testing import synthetic_catalog_mw, synthetic_state
+from monortm_tpu.testing import synthetic_catalog_mw as j_catalog
+from monortm_tpu.testing import synthetic_state
 from monortm_tpu_torch.models.od import ODModel
 from monortm_tpu_torch.ops.lineshape import LineConfig, catalog_to_device
 from monortm_tpu_torch.ops.tips import tips_scor
 from monortm_tpu_torch.ops.linesum import (FLAGS, PER_L, PER_LN,
                                            VOIGT_KERNEL, line_od_forward,
                                            precompute)
+from monortm_tpu_torch.ops.linesum_kernel import _LineSum
 from monortm_tpu_torch.ops.linesum_lorentz import (LORENTZ_KERNEL,
                                                    all_lorentz_predicate)
+from monortm_tpu_torch.testing import synthetic_catalog_mw
 
 torch.set_num_threads(1)
 
 WN = np.linspace(0.4, 50.0, 64)
 
 
-def _catalog(kind):
+def _catalog(kind, make=synthetic_catalog_mw):
+    """The test catalog `kind`, built by the port's fixture or (make=
+    j_catalog) the JAX package's: each package gets its own."""
     if kind == "far":
         # every line far above the grid, no O2: nothing inside 25 cm^-1
-        cat = synthetic_catalog_mw(n_h2o=48, n_o2=0, seed=3, tile=128)
+        cat = make(n_h2o=48, n_o2=0, seed=3, tile=128)
         cat.nu0[:] = cat.nu0 + 500.0
         cat.nu0_hi[:] = cat.nu0.astype(np.float32)
         cat.nu0_lo[:] = (cat.nu0 - cat.nu0_hi.astype(np.float64)).astype(
             np.float32)
         return cat
-    cat = synthetic_catalog_mw(n_h2o=150, n_o2=24, tile=128)
+    cat = make(n_h2o=150, n_o2=24, tile=128)
     if kind == "no_sd":
         cat.sdep[:] = 0.0
     if kind == "ibrd":
@@ -61,13 +66,14 @@ def _catalog(kind):
     return cat
 
 
-def _models(cat, line_tile=256, ibrd=0):
-    kw = dict(dvset=float(WN[1] - WN[0]), catalog=cat, nmol=22)
-    jm = JODModel(WN, dtype=jnp.float32, use_pallas=True,
-                  pallas_wn_tile=128, pallas_line_tile=line_tile,
+def _models(kind, line_tile=256, ibrd=0):
+    kw = dict(dvset=float(WN[1] - WN[0]), nmol=22)
+    jm = JODModel(WN, catalog=_catalog(kind, j_catalog), dtype=jnp.float32,
+                  use_pallas=True, pallas_wn_tile=128,
+                  pallas_line_tile=line_tile,
                   line_cfg=JLineConfig(ibrd=ibrd), **kw)
-    pm = ODModel(WN, device="cpu", wn_tile=128, line_tile=line_tile,
-                 line_cfg=LineConfig(ibrd=ibrd), **kw)
+    pm = ODModel(WN, catalog=_catalog(kind), device="cpu", wn_tile=128,
+                 line_tile=line_tile, line_cfg=LineConfig(ibrd=ibrd), **kw)
     return jm, pm
 
 
@@ -101,7 +107,7 @@ def _jax_plan(jm, lorentz):
 
 @pytest.mark.parametrize("line_tile", [256, 128])
 def test_plans_identical(line_tile):
-    jm, pm = _models(_catalog("plain"), line_tile=line_tile)
+    jm, pm = _models("plain", line_tile=line_tile)
     for lorentz, mine in ((False, pm.plan), (True, pm.plan_lorentz)):
         ref = _jax_plan(jm, lorentz)
         assert (ref["nt"], ref["wt"]) == (mine["nt"], mine["wt"])
@@ -119,8 +125,7 @@ def test_plans_identical(line_tile):
 def test_precompute_matches(ibrd):
     """line_params / precompute over the tiled catalog, across pressure
     regimes (Lorentz, SD-Voigt, near vacuum), in float32."""
-    cat = _catalog("ibrd" if ibrd else "plain")
-    jm, pm = _models(cat, ibrd=ibrd)
+    jm, pm = _models("ibrd" if ibrd else "plain", ibrd=ibrd)
     args = _state(p_top=0.02, nlay=6, batch=2)
     # eager, op by op as the port runs: under jit XLA fuses the prologue
     # and rounds differently from the JAX package's own eager ops
@@ -180,7 +185,7 @@ def _jax_line_sum(cat_kind, lorentz, line_tile):
     """The JAX engine's sf and its prologue's operands (numpy) for all
     cases on one catalog in one call: the interpret-mode Pallas call
     dominates this file's time."""
-    jm, _ = _models(_catalog(cat_kind), line_tile=line_tile)
+    jm, _ = _models(cat_kind, line_tile=line_tile)
     args, _ = _group_state(cat_kind)
     jargs = [jnp.asarray(a) for a in args]
     plan = _jax_plan(jm, lorentz)
@@ -203,7 +208,7 @@ def _line_sums(case, lorentz, line_tile=256, jax_operands=True):
     port's sum the JAX prologue's operands, so the comparison is of the
     sums alone; otherwise the port runs its own prologue too."""
     kind = CASES[case]["cat"]
-    _, pm = _models(_catalog(kind), line_tile=line_tile)
+    _, pm = _models(kind, line_tile=line_tile)
     args, slices = _group_state(kind)
     ls = slices[case]
     args = [a[ls] for a in args]
@@ -263,7 +268,7 @@ def test_line_sum_multi_tile_plan():
 
 @pytest.mark.parametrize("p_top", [400.0, 50.0, 0.02])
 def test_predicate_identical(p_top):
-    jm, pm = _models(_catalog("plain"))
+    jm, pm = _models("plain")
     args = _state(p_top=p_top, nlay=6, batch=2)
     want = np.asarray(j_predicate(jm.host_cat,
                                   *(jnp.asarray(a) for a in args),
@@ -277,18 +282,40 @@ def test_predicate_identical(p_top):
 
 
 def test_backward_raises():
-    """The line sum is an autograd.Function whose backward is not ported:
-    a gradient never runs through it silently."""
-    _, pm = _models(_catalog("plain"))
+    """Off the CPU the adjoint launches its kernel or raises; on CPU
+    tensors it takes the plain adjoint and launches nothing, giving
+    autograd's own gradient of the plain sum."""
+    _, pm = _models("plain")
     dp = pm.dev_plans["full"]
     args = _torch(_state())
     pre = precompute(dp["cat"], *args, LineConfig(), torch.float32)
-    pre["stild"] = pre["stild"].requires_grad_()
-    sf = VOIGT_KERNEL(pre, dp["cat"]["mol"], dp["wn_hi"], dp["wn_lo"],
-                      dp["cand_map"], dp["cand_valid"], dp["nt"], dp["wt"],
-                      22)
-    with pytest.raises(NotImplementedError, match="B2"):
-        sf.sum().backward()
+    plan = (dp["cat"]["mol"], dp["wn_hi"], dp["wn_lo"], dp["cand_map"],
+            dp["cand_valid"], dp["nt"], dp["wt"], 22)
+    leaves = {k: pre[k].detach().requires_grad_() for k in PER_LN}
+    w = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, len(dp["wn_hi"]), 22)).astype(np.float32))
+    launches = VOIGT_KERNEL.bwd_launches
+    (VOIGT_KERNEL({**pre, **leaves}, *plan) * w).sum().backward()
+    assert VOIGT_KERNEL.bwd_launches == launches
+    ref = {k: pre[k].detach().requires_grad_() for k in PER_LN}
+    (VOIGT_KERNEL.plain({**pre, **ref}, *plan) * w).sum().backward()
+    for k in PER_LN:
+        np.testing.assert_allclose(leaves[k].grad.numpy(),
+                                   ref[k].grad.numpy(), rtol=1e-5,
+                                   atol=1e-6 * float(ref[k].grad.abs().max()),
+                                   err_msg=k)
+    meta = {k: v.to("meta") if torch.is_tensor(v) else v
+            for k, v in pre.items()}
+    meta["flags"] = {k: v.to("meta") for k, v in pre["flags"].items()}
+    ctx = type("Ctx", (), {})()
+    ctx.kernel, ctx.static = VOIGT_KERNEL, {k: meta[k] for k in PER_L}
+    ctx.static["flags"] = meta["flags"]
+    ctx.plan = tuple(v.to("meta") if torch.is_tensor(v) else v
+                     for v in plan) + (None, None)
+    ctx.saved_tensors = tuple(meta[k] for k in PER_LN)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        _LineSum.backward(ctx, torch.zeros(4, len(dp["wn_hi"]), 22,
+                                           device="meta"))
 
 
 def test_no_kernel_for_other_devices():

@@ -42,10 +42,13 @@ def _host_state():
 
 
 def _models():
-    cat = j_catalog(n_h2o=120, n_o2=24, tile=128)
-    kw = dict(dvset=float(WN[1] - WN[0]), catalog=cat, nmol=22)
-    return (JMonoRTM(WN, dtype=jnp.float32, use_pallas=True, **kw),
-            MonoRTM(WN, device="cpu", **kw))
+    """Each package with its own (identical) catalog."""
+    kw = dict(dvset=float(WN[1] - WN[0]), nmol=22)
+    return (JMonoRTM(WN, catalog=j_catalog(n_h2o=120, n_o2=24, tile=128),
+                     dtype=jnp.float32, use_pallas=True, **kw),
+            MonoRTM(WN, catalog=synthetic_catalog_mw(n_h2o=120, n_o2=24,
+                                                     tile=128),
+                    device="cpu", **kw))
 
 
 @functools.lru_cache(maxsize=None)
