@@ -14,10 +14,13 @@ on the GPU):
     kernels and agrees with the CPU path on one profile;
   4 forward timings, each forward kernel beside its plain version;
   5 each adjoint instantiation against its plain version (seeded
-    cotangents on the small and bench plans at 1013 / 20 / 0.02 hPa, and
-    the real cotangent of the loss on the main path's operands; the
-    Voigt instantiation's partials by shift, hw and ad against the plain
-    version run in float64);
+    cotangents on the small and bench plans at 1013 / 20 / 0.02 hPa, with
+    layers at 1013 and 0.02 hPa alternating in one call, and the real
+    cotangent of the loss on the main path's operands; the Voigt
+    instantiation's partials by shift, hw and ad against the plain
+    version run in float64; every call twice, bitwise equal; the
+    (layer, line) pairs whose SD-Voigt lanes the Voigt adjoint defers to
+    its second kernel against a count made here);
   6 the retrieval adjoint: value and gradient of mean((tb - tb_obs)^2)
     with tb_obs from the state warmed by 1 K, checking that it went
     through both adjoint kernels, that every gradient is finite and not
@@ -30,9 +33,11 @@ Run from the repository root:  python3 chip_smoke.py
 Exits non-zero (and prints no result line) without a CUDA device or when
 any phase fails; a phase prints all of its comparisons before it fails.
 The line before the last two lists each kernel with its launches on the
-main path, its worst error against its plain version (max_abs_err, and
-max_rel_err = the worst err / max|ref| over the kernel's outputs), its
-time, its plain version's time and its bound.  The last line of stdout is
+main path (`launches` counts calls of the wrapper; `kernels_per_launch`
+says how many kernels one call starts: the Voigt adjoint's two), its
+worst error against its plain version (max_abs_err, and max_rel_err = the
+worst err / max|ref| over the kernel's outputs), its time, its plain
+version's time and its bound.  The last line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -68,15 +73,24 @@ BWD_ATOL = 1e-5
 SD_PARTIALS = ("shift", "hw", "ad")
 
 # FP32 operations per kept (layer, wavenumber, line) evaluation, counted by
-# hand from csrc/linesum_math.cuh (an add, multiply, divide, sqrt, exp or
-# cos is one operation), by lane class: Lorentz, Lorentz with k2, SD-Voigt,
-# SD-Voigt with k2.  SD-Voigt lanes are counted at Humlicek region 1, the
-# cheapest, and in the adjoint as one float Dual evaluation at the FP32
-# rate, although their partials run in double beside a float value
-# (sd_shape), which takes longer.  So the operation bound is a lower
-# bound.
+# hand from csrc/linesum_math.cuh (an add, multiply, compare, divide, sqrt,
+# exp or cos is one operation), by lane class: Lorentz, Lorentz with k2,
+# SD-Voigt, SD-Voigt with k2.  SD-Voigt lanes are counted at Humlicek
+# region 1, the cheapest, and in the adjoint as one float Dual evaluation
+# at the FP32 rate, although their partials run in double beside a float
+# value (sd_shape), which takes longer.  A Lorentz lane of the adjoint is
+# counted for a line of the branch trees' plain class (k1 - k3, the
+# cheapest): pair_of 9, the lane switch 1 (VOIGT), lorentz_partials 10 per
+# shape, sls 2 (3 with k2), d sls / d hw 3, the five sums 12; what is
+# computed once per thread (LinePre) is not counted.  So the operation
+# bound is a lower bound.
 OPS = {("fwd", True): (26, 33, 82, 151), ("fwd", False): (22, 29, 0, 0),
-       ("bwd", True): (140, 188, 465, 875), ("bwd", False): (131, 179, 0, 0)}
+       ("bwd", True): (37, 48, 465, 875), ("bwd", False): (36, 47, 0, 0)}
+# the adjoint's count while a Lorentz lane carried dual numbers through
+# the shapes and the pedestal at every wavenumber: its bound is printed
+# beside the present one, so that times stay comparable with older ones
+OPS_DUAL = {("bwd", True): (140, 188, 465, 875),
+            ("bwd", False): (131, 179, 0, 0)}
 PEAK_FLOPS = 67e12   # H100 SXM FP32, non-tensor
 PEAK_BYTES = 3.35e12
 
@@ -127,10 +141,12 @@ def cuda_ms(fn, reps):
 def lane_counts(pre, mol, wn_hi, wn_lo, cand_map, cand_valid, nt, wt,
                 n_mol, voigt):
     """Kept evaluations of one line sum by lane class (see OPS), counted on
-    this call's data with the kernels' masks."""
+    this call's data with the kernels' masks, and the kept SD-Voigt lanes
+    of each (layer, line) over all wavenumbers, int64 [L, N]."""
     dev = pre["stild"].device
     cm, cv = cand_map.cpu().numpy(), cand_valid.cpu().numpy()
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    sd_lanes = torch.zeros(pre["stild"].shape, dtype=torch.int64, device=dev)
     fl = {k: pre["flags"][k] > 0.5 for k in pre["flags"]}
     mol_ok = (mol >= 1) & (mol <= n_mol)
     c01, c99 = float(np.float32(0.01)), float(np.float32(0.99))
@@ -158,12 +174,13 @@ def lane_counts(pre, mol, wn_hi, wn_lo, cand_map, cand_valid, nt, wt,
                                    (keep & lor & k2).sum(),
                                    (keep & ~lor & ~k2).sum(),
                                    (keep & ~lor & k2).sum()])
-    return counts.tolist()
+            sd_lanes[:, sl] += (keep & ~lor).sum(1)
+    return counts.tolist(), sd_lanes
 
 
-def bound(direction, voigt, counts, n_bytes):
+def bound(direction, voigt, counts, n_bytes, ops_table=OPS):
     """(bound_ms, bound_by): the larger of the operation and byte times."""
-    ops = sum(c * o for c, o in zip(counts, OPS[(direction, voigt)]))
+    ops = sum(c * o for c, o in zip(counts, ops_table[(direction, voigt)]))
     t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -269,6 +286,10 @@ def main() -> int:
         k = kernels[engine]
         pre, mol, wh, wl, cm, cv, nt, wt, n_mol, rev = args
         got = k.launch_bwd(pre, mol, wh, wl, *rev, nt, wt, n_mol, g)
+        again = k.launch_bwd(pre, mol, wh, wl, *rev, nt, wt, n_mol, g)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)
+                   if a is not None):
+            FAILED.append(f"{what}: two runs of the adjoint kernel differ")
         ref = k.plain_bwd(pre, mol, wh, wl, cm, cv, nt, wt, n_mol, g)
         if k.voigt:
             d = lambda v: v.double() if torch.is_tensor(v) else v
@@ -291,6 +312,25 @@ def main() -> int:
                 e = compare(a, ref[i], f"{what} d{name}", BWD_ATOL)
             worst = tuple(map(max, worst, e))
         return worst
+
+    def deferred_vs_count(args, what, layers_with_none=()):
+        """The (layer, line) pairs the last Voigt adjoint call deferred to
+        its second kernel against those with kept SD-Voigt lanes counted
+        here; `layers_with_none` must have none (their blocks leave the
+        second kernel at once)."""
+        _, sd_lanes = lane_counts(*args[:9], voigt=True)
+        marked = kernels["full"].deferred != 0
+        per_layer = sd_lanes.sum(1).tolist()
+        log(f"  {what}: {int(sd_lanes.sum())} deferred SD-Voigt pairs in "
+            f"{int(marked.sum())} of {marked.numel()} (layer, line); per "
+            f"layer {per_layer[:8]}{'...' if len(per_layer) > 8 else ''}")
+        if not torch.equal(marked, sd_lanes > 0):
+            FAILED.append(f"{what}: the kernel deferred "
+                          f"{int(marked.sum())} (layer, line) pairs, "
+                          f"{int((sd_lanes > 0).sum())} have SD-Voigt lanes")
+        if any(per_layer[i] for i in layers_with_none):
+            FAILED.append(f"{what}: SD-Voigt lanes in {layers_with_none}")
+        return per_layer
 
     small_wn = np.linspace(0.4, 50.0, 64)
     small = MonoRTM(small_wn, float(small_wn[1] - small_wn[0]),
@@ -408,7 +448,7 @@ def main() -> int:
         k = kernels[eng]
         ms = cuda_ms(lambda: k(*args[:9]), 20)
         plain_ms = cuda_ms(lambda: k.plain(*args[:9]), 3)
-        counts = lane_counts(*args[:9], voigt=k.voigt)
+        counts, _ = lane_counts(*args[:9], voigt=k.voigt)
         b_ms, b_by = bound("fwd", k.voigt, counts,
                            line_bytes(args, "fwd", k.voigt))
         L = args[0]["stild"].shape[0]
@@ -420,7 +460,7 @@ def main() -> int:
             "source": "monortm_tpu_torch/csrc/linesum.cu",
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "bound_by": b_by, "library_ms": None, "kernels_per_launch": 1}
     phase_done(4)
 
     # ---- phase 5: each adjoint kernel vs its plain version --------------
@@ -442,6 +482,23 @@ def main() -> int:
                                 device=dev)
                 bwd_vs_plain(args, g, eng, f"{name} {p_hpa} hPa "
                              f"{'SD on' if sd_on else 'SD off'} {eng}")
+        # layers at 1013 and 0.02 hPa alternating: blocks full of SD-Voigt
+        # lanes beside blocks with none, in one call
+        mixed = torch.where(torch.arange(nlay, device=dev) % 2 == 0,
+                            1013.0, 0.02).to(st.p.dtype)
+        args = operands(m, LayerState(p=mixed, t=st.t, tz=st.tz, wkl=st.wkl,
+                                      wbrodl=st.wbrodl, clw=st.clw),
+                        "full", list(range(nlay)))
+        L, wp = args[0]["stild"].shape[0], args[2].shape[0]
+        g = torch.randn((L, wp, args[8]), generator=gen, device=dev)
+        bwd_vs_plain(args, g, "full", f"{name} 1013 / 0.02 hPa full")
+        per_layer = deferred_vs_count(args, f"{name} 1013 / 0.02 hPa",
+                                      range(0, nlay, 2))
+        # (the small plan's 64 wavenumbers lie off every line's core)
+        if name == "bench" and not all(per_layer[i]
+                                       for i in range(1, nlay, 2)):
+            FAILED.append(f"{name} 1013 / 0.02 hPa: a near-vacuum layer has "
+                          f"no SD-Voigt lane: {per_layer}")
     # the real cotangent of the loss, captured once from the main path
     for eng, k in kernels.items():
         def record(*a, _e=eng, _k=k):
@@ -458,6 +515,7 @@ def main() -> int:
                                 f"bench main-path operands {eng}")
         results[f"linesum_bwd_{kernels[eng].name}"] = {
             "max_abs_err": err, "max_rel_err": rel}
+    deferred_vs_count(main_args["full"], "bench main-path operands")
     phase_done(5)
 
     # ---- phase 6: the retrieval adjoint at the bench workload -----------
@@ -571,18 +629,27 @@ def main() -> int:
                                           n_mol, g), 10)
         plain_ms = cuda_ms(lambda: k.plain_bwd(pre, mol, wh, wl, cm, cv,
                                                nt, wt, n_mol, g), 1)
-        counts = lane_counts(*main_args[eng][:9], voigt=k.voigt)
-        b_ms, b_by = bound("bwd", k.voigt, counts,
-                           line_bytes(main_args[eng], "bwd", k.voigt))
+        counts, _ = lane_counts(*main_args[eng][:9], voigt=k.voigt)
+        n_bytes = line_bytes(main_args[eng], "bwd", k.voigt)
+        d_ms, d_by = bound("bwd", k.voigt, counts, n_bytes, OPS_DUAL)
+        log(f"  {eng} adjoint kernel: bound {d_ms:.4f} ms ({d_by}) at the "
+            f"dual-number count of operations {OPS_DUAL[('bwd', k.voigt)]}")
+        b_ms, b_by = bound("bwd", k.voigt, counts, n_bytes)
+        info = k.bwd_info(nt, wt, n_mol)
         log(f"  {eng} adjoint kernel: {ms:.3f} ms, plain {plain_ms:.3f} "
-            f"ms, bound {b_ms:.4f} ms ({b_by}; lanes {counts}) "
-            f"(L={pre['stild'].shape[0]} layers)")
+            f"ms, bound {b_ms:.4f} ms ({b_by}; operations "
+            f"{OPS[('bwd', k.voigt)]}; lanes {counts}) "
+            f"(L={pre['stild'].shape[0]} layers); built {info}; "
+            f"{2 if k.voigt else 1} kernel(s) per launch of the wrapper")
         results[f"linesum_bwd_{k.name}"].update({
             "name": f"linesum_bwd_{k.name}", "route": "cuda",
             "source": "monortm_tpu_torch/csrc/linesum_bwd.cu",
             "replaces": "monortm_tpu/ops/linesum_pallas.py:328",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None})
+            "bound_by": b_by, "library_ms": None,
+            "bound_ms_dual_count": d_ms, "registers": info["registers"],
+            "blocks_per_sm": info["blocks_per_sm"],
+            "kernels_per_launch": 2 if k.voigt else 1})
     phase_done(7)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -591,12 +658,14 @@ def main() -> int:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "bound_by", "library_ms", "kernels_per_launch")
     rows = list(results.values())
     check(len(rows) == 4 and all(set(keys) <= set(r) for r in rows)
           and all(r["launches"] for r in rows),
           f"incomplete kernel results: {rows}")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    extra = ("bound_ms_dual_count", "registers", "blocks_per_sm")
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

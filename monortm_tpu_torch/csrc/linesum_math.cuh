@@ -7,17 +7,34 @@
 // The shape functions are templates on their scalar type T.  T = float is
 // the forward.  T = Dual (DualT<float>) carries, beside each value, its
 // partial derivatives by the detuning, the Lorentz halfwidth and the
-// Doppler halfwidth (forward-mode automatic differentiation): so the
-// adjoint differentiates the shipped rational approximations themselves,
-// branch for branch, as jax.vjp of the Pallas kernel does, and not the
-// analytic w(z).  Every branch decision is taken on the value part.  On a
-// Lorentz lane the value part of a Dual is computed by the same float
-// operations in the same order as T = float, so both kernels take the
-// same branches.  An SD-Voigt lane takes its partials from T = Dual64
-// (DualT<double>; see sd_shape) and its value from T = float.
+// Doppler halfwidth (forward-mode automatic differentiation): it
+// differentiates the shipped rational approximations themselves, branch
+// for branch, as jax.vjp of the Pallas kernel does, and not the analytic
+// w(z).  Every branch decision is taken on the value part, and the value
+// part of a Dual is computed by the same float operations in the same
+// order as T = float, so forward and adjoint take the same branches.
+//
+// The adjoint has two per-pair evaluations (second half of this header):
+//   - a Lorentz lane, nearly every pair, goes through
+//     lorentz_class_adjoint: the value as the forward computes it (one
+//     IEEE divide per shape), the partials in closed form from that value
+//     (no further divide), everything that depends on the (layer, line)
+//     alone taken from a LinePre computed once per thread (pedestal and
+//     its derivative, Y factors at the window's edge, the Lorentz switch,
+//     the branch-tree class), and the branch trees' adjoint written out
+//     per class.  No dual number is formed there;
+//   - an SD-Voigt lane goes through sd_pair_adjoint: value from T = float,
+//     partials from T = Dual64 (DualT<double>; see sd_shape), then the
+//     generic tree_adjoint.
+// sweep_tile runs the first over a tile's wavenumbers, in a loop compiled
+// once per class of the branch trees, and reports whether it met lanes of
+// the second kind; deferred_tile revisits exactly those.  pair_adjoint,
+// the all-dual evaluation of either lane, is what the tests hold the
+// closed forms against.
 //
 // This header uses no CUDA runtime API; it needs only the math functions
-// and the __device__ / __forceinline__ qualifiers.
+// and the __device__ / __forceinline__ qualifiers, so a host compiler
+// builds it too (tests/test_torch_sd_partials.py, test_torch_bwd_math.py).
 
 #pragma once
 
@@ -429,18 +446,19 @@ __device__ __forceinline__ float branch_trees(const Pair& p, const Line& ln,
     return k1 - k3 + (p.mirror ? k2 - k3 : 0.0f);
 }
 
+// ---- the adjoint of one (wavenumber, line) evaluation ---------------------
+
 // indices of the seven per-(layer, line) cotangents, in PER_LN order
 enum { D_SHIFT, D_STILD, D_HW, D_AD, D_K3V, D_YA, D_YB, N_COT };
 
-// The adjoint of one pair's contribution sls * stild: adds gb times its
-// partial derivatives by the seven per-(layer, line) operands to acc.
-// The branch trees' adjoint is written out by hand; the shapes' partials
-// come from the Dual instantiation of `shapes`.
+// The adjoint of sls * stild given the shapes as dual numbers: adds gb
+// times its partial derivatives by the seven per-(layer, line) operands to
+// acc.  The branch trees' adjoint is written out by hand.
 template <bool VOIGT>
-__device__ __forceinline__ void pair_adjoint(const Pair& p, const Line& ln,
+__device__ __forceinline__ void tree_adjoint(const Pair& p, const Line& ln,
+                                             const Dual& k1, const Dual& k2,
+                                             const Dual& k3, bool use_lor,
                                              float gb, float* acc) {
-    Dual k1, k2, k3;
-    const bool use_lor = shapes<VOIGT>(p, ln, k1, k2, k3);
     const float sls = branch_trees(p, ln, k1.v, k2.v, k3.v);
 
     // partials of sls by k1, k2, k3, the Y factors and the pedestal
@@ -501,6 +519,286 @@ __device__ __forceinline__ void pair_adjoint(const Pair& p, const Line& ln,
     acc[D_YB] += gs * (a_y1 + a_y2 + a_y1p + a_y2p);
 }
 
+// The all-dual adjoint of one pair, Lorentz or SD-Voigt lane alike: the
+// shapes' partials from the Dual instantiation of `shapes`.  No kernel
+// calls it; the closed forms below are held against it.
+template <bool VOIGT>
+__device__ __forceinline__ void pair_adjoint(const Pair& p, const Line& ln,
+                                             float gb, float* acc) {
+    Dual k1, k2, k3;
+    const bool use_lor = shapes<VOIGT>(p, ln, k1, k2, k3);
+    tree_adjoint<VOIGT>(p, ln, k1, k2, k3, use_lor, gb, acc);
+}
+
+// The adjoint of one pair on an SD-Voigt lane.
+__device__ __forceinline__ void sd_pair_adjoint(const Pair& p, const Line& ln,
+                                                float gb, float* acc) {
+    const Dual k1 = sd_shape<Dual>(p.d1, ln);
+    const Dual k2 = p.need_k2 ? sd_shape<Dual>(p.dsum, ln) : Dual(0.0f);
+    tree_adjoint<true>(p, ln, k1, k2, Dual(ln.k3v), false, gb, acc);
+}
+
+// The class of a line in the LSF branch trees: which formula gives sls.
+// It depends on the line's flags alone.
+enum TreeClass {
+    T_O2_CPL_XF1,   // k1*y1 + k2*y2
+    T_O2_CPL,       // k1 + k2
+    T_O2,           // within ? k1 + (mirror ? k2 : 0) : 0
+    T_CO2_XF15,     // k1*y1 - k3*ped - k3*((y1 - 1)*ped)
+    T_CO2,          // k1 - k3*ped
+    T_CPL,          // y1*k1 - y1p*k3 + (mirror ? y2*k2 - y2p*k3 : 0)
+    T_PLAIN,        // k1 - k3 + (mirror ? k2 - k3 : 0)
+    N_TREE_CLASS
+};
+
+__device__ __forceinline__ int tree_class(int flags) {
+    const bool cpl = flags & FL_CPL;
+    if (flags & FL_O2)
+        return cpl ? ((flags & FL_XF1) ? T_O2_CPL_XF1 : T_O2_CPL) : T_O2;
+    if (flags & FL_CO2)
+        return (cpl && (flags & FL_XF15)) ? T_CO2_XF15 : T_CO2;
+    return cpl ? T_CPL : T_PLAIN;
+}
+
+// The line with the flags of its class alone: pair_of and branch_trees
+// take the same path on it as on the line's own flags, and where CLS is a
+// compile-time constant their flag tests fold away.
+template <int CLS>
+__device__ __forceinline__ Line class_line(const Line& ln) {
+    Line lc = ln;
+    lc.flags = FL_VALID
+               | (CLS == T_O2_CPL_XF1 ? FL_O2 | FL_CPL | FL_XF1
+                  : CLS == T_O2_CPL   ? FL_O2 | FL_CPL
+                  : CLS == T_O2       ? FL_O2
+                  : CLS == T_CO2_XF15 ? FL_CO2 | FL_CPL | FL_XF15
+                  : CLS == T_CO2      ? FL_CO2
+                  : CLS == T_CPL      ? FL_CPL
+                                      : 0);
+    return lc;
+}
+
+// f.template operator()<CLS>() for the class cls: how one thread enters
+// the code specialised for its line's class
+template <typename F>
+__device__ __forceinline__ auto for_class(int cls, F f) {
+    switch (cls) {
+        case T_O2_CPL_XF1: return f.template operator()<T_O2_CPL_XF1>();
+        case T_O2_CPL: return f.template operator()<T_O2_CPL>();
+        case T_O2: return f.template operator()<T_O2>();
+        case T_CO2_XF15: return f.template operator()<T_CO2_XF15>();
+        case T_CO2: return f.template operator()<T_CO2>();
+        case T_CPL: return f.template operator()<T_CPL>();
+        default: return f.template operator()<T_PLAIN>();
+    }
+}
+
+// What a Lorentz lane's adjoint needs of its line and layer but not of
+// the wavenumber: one thread of the adjoint kernel owns one (layer, line)
+// for its whole sweep and computes this once.
+struct LinePre {
+    float hw_pi, hw2;         // the forward's hw/pi and hw^2
+    float two_hw, inv_hw_pi;  // for the closed-form partials
+    float k3, k3_dh;          // a Lorentz lane's pedestal, its d/d hw
+    float y1p, y2p;           // the Y factors at +-25 cm^-1
+    float ad100;              // 100 aD
+    bool zlor;                // zeta > 0.99: every lane is Lorentz
+    int cls;                  // TreeClass
+};
+
+template <bool VOIGT>
+__device__ __forceinline__ LinePre line_pre(const Line& ln) {
+    LinePre pre;
+    pre.hw_pi = ln.hw * INV_PI;
+    pre.hw2 = ln.hw * ln.hw;
+    pre.two_hw = 2.0f * ln.hw;
+    pre.inv_hw_pi = pre.hw_pi > 0.0f ? 1.0f / pre.hw_pi : 0.0f;
+    const Dual k3 = pedestal<VOIGT>(var<Dual>(ln.hw, 1));
+    pre.k3 = k3.v;
+    pre.k3_dh = k3.dh;
+    pre.y1p = 1.0f + ln.ya * CUT + ln.yb;
+    pre.y2p = 1.0f - ln.ya * CUT + ln.yb;
+    pre.ad100 = 100.0f * ln.ad;
+    pre.zlor = VOIGT ? ln.hw * F(0.01) > ln.ad * F(0.99) : true;
+    pre.cls = tree_class(ln.flags);
+    return pre;
+}
+
+// The lane's switch (modm.f90:419-431), as `shapes` takes it.
+template <bool VOIGT>
+__device__ __forceinline__ bool lorentz_lane(float d1, const LinePre& pre) {
+    return !VOIGT || fabsf(d1) > pre.ad100 || pre.zlor;
+}
+
+// a * b + c in one rounding, for the partials and their sums.  Values (the
+// shapes, sls, d_stild) never go through it: they round as the forward
+// does, whose sources are built without contraction.
+__device__ __forceinline__ float mad(float a, float b, float c) {
+#ifdef __CUDA_ARCH__
+    return __fmaf_rn(a, b, c);
+#else
+    return fmaf(a, b, c);
+#endif
+}
+
+// The Lorentz shape at detuning dd as the forward computes it, and its
+// partials by dd and hw from the value: with r = 1/(hw^2 + dd^2) =
+// k / (hw/pi), dk/ddd = -2 dd k r and dk/dhw = (1/pi - 2 hw k) r.
+__device__ __forceinline__ void lorentz_partials(float dd, const LinePre& pre,
+                                                 float& k, float& k_dn,
+                                                 float& k_dh) {
+    k = pre.hw_pi / (pre.hw2 + dd * dd);
+    const float r = k * pre.inv_hw_pi;
+    k_dn = -2.0f * dd * k * r;
+    k_dh = mad(-pre.two_hw, k, INV_PI) * r;
+}
+
+// The adjoint of one pair on a Lorentz lane of a line of class CLS; lc is
+// class_line<CLS> of the line.  sls is the forward's (branch_trees on the
+// forward's values); the partials are those tree_adjoint forms for the
+// class, with the terms that are zero for it left out.  A Lorentz lane
+// gives aD and k3v no cotangent.
+template <int CLS>
+__device__ __forceinline__ void lorentz_class_adjoint(const Pair& p,
+                                                      const Line& lc,
+                                                      const LinePre& pre,
+                                                      float gb, float* acc) {
+    if (CLS == T_O2 && !p.within) return;     // sls = 0 and so its partials
+    float k1, k1_dn, k1_dh, k2 = 0.0f, k2_dn = 0.0f, k2_dh = 0.0f;
+    lorentz_partials(p.d1, pre, k1, k1_dn, k1_dh);
+    if (CLS != T_CO2 && CLS != T_CO2_XF15 && p.need_k2)
+        lorentz_partials(p.dsum, pre, k2, k2_dn, k2_dh);
+    const float k3 = pre.k3, ya = lc.ya;
+    const float sls = branch_trees(p, lc, k1, k2, k3);
+
+    // the partials of sls by d1, dsum, hw, ya and yb
+    float s_d1, s_dsum = 0.0f, s_hw, s_ya = 0.0f, s_yb = 0.0f;
+    constexpr bool has_y = CLS == T_O2_CPL_XF1 || CLS == T_CPL
+                           || CLS == T_CO2_XF15;
+    if (CLS == T_PLAIN) {
+        s_d1 = k1_dn;
+        s_dsum = k2_dn;
+        s_hw = mad(p.mirror ? -2.0f : -1.0f, pre.k3_dh, k1_dh + k2_dh);
+    } else if (CLS == T_O2_CPL || CLS == T_O2) {
+        s_d1 = k1_dn;
+        s_dsum = k2_dn;
+        s_hw = k1_dh + k2_dh;
+    } else if (CLS == T_O2_CPL_XF1) {
+        const float y1 = 1.0f + ya * p.d1 + lc.yb;
+        const float y2 = 1.0f - ya * p.dsum + lc.yb;
+        s_d1 = mad(y1, k1_dn, k1 * ya);
+        s_dsum = mad(y2, k2_dn, -(k2 * ya));
+        s_hw = mad(y1, k1_dh, y2 * k2_dh);
+        s_ya = mad(k1, p.d1, -(k2 * p.dsum));
+        s_yb = k1 + k2;
+    } else if (CLS == T_CPL) {
+        const float y1 = 1.0f + ya * p.d1 + lc.yb;
+        s_d1 = mad(y1, k1_dn, k1 * ya);
+        if (p.mirror) {
+            const float y2 = 1.0f - ya * p.dsum + lc.yb;
+            s_dsum = mad(y2, k2_dn, -(k2 * ya));
+            s_hw = mad(-pre.y1p - pre.y2p, pre.k3_dh,
+                       mad(y1, k1_dh, y2 * k2_dh));
+            s_ya = mad(k1, p.d1, -(k2 * p.dsum));
+            s_yb = k1 + k2 - k3 - k3;
+        } else {
+            s_hw = mad(y1, k1_dh, -(pre.y1p * pre.k3_dh));
+            s_ya = mad(k1, p.d1, -(k3 * CUT));
+            s_yb = k1 - k3;
+        }
+    } else {                                  // CO2
+        const float ped = 2.0f - (p.d1 * p.d1) / CUT2;
+        const float ped_d1 = -2.0f * p.d1 / CUT2;
+        if (CLS == T_CO2_XF15) {
+            const float y1 = 1.0f + ya * p.d1 + lc.yb;
+            const float a_y1 = k1 - k3 * ped;
+            s_d1 = mad(-k3 - k3 * (y1 - 1.0f), ped_d1,
+                       mad(y1, k1_dn, a_y1 * ya));
+            s_hw = mad(-ped - (y1 - 1.0f) * ped, pre.k3_dh, y1 * k1_dh);
+            s_ya = a_y1 * p.d1;
+            s_yb = a_y1;
+        } else {
+            s_d1 = mad(-k3, ped_d1, k1_dn);
+            s_hw = mad(-ped, pre.k3_dh, k1_dh);
+        }
+    }
+    const float gs = gb * lc.stild;           // cotangent of sls
+    acc[D_SHIFT] = mad(gs, s_dsum - s_d1, acc[D_SHIFT]);
+    acc[D_STILD] += gb * sls;
+    acc[D_HW] = mad(gs, s_hw, acc[D_HW]);
+    if (has_y) {
+        acc[D_YA] = mad(gs, s_ya, acc[D_YA]);
+        acc[D_YB] = mad(gs, s_yb, acc[D_YB]);
+    }
+}
+
+// ---- one thread's run over a tile of wavenumbers --------------------------
+
+#ifndef LINESUM_SWEEP_UNROLL
+#define LINESUM_SWEEP_UNROLL 2
+#endif
+#define LINESUM_STR(x) #x
+#define LINESUM_PRAGMA(x) _Pragma(LINESUM_STR(x))
+
+// Adds to acc the adjoint of every Lorentz-lane pair of line ln with the
+// wt wavenumbers (whi + wlo), in wavenumber order; g[w * g_stride] is the
+// cotangent at wavenumber w and the line's molecule.  Returns true where
+// the tile holds SD-Voigt lanes of this line, which it leaves out.  The
+// loop is compiled once per class of the branch trees, so that inside it
+// only what varies with the wavenumber branches (the window, the mirror
+// term, the lane switch); the lines of a tile are mostly of one class,
+// and a warp that holds several runs the loop of each in turn.
+template <bool VOIGT>
+struct SweepTile {
+    const float* whi;
+    const float* wlo;
+    const float* g;
+    int g_stride, wt;
+    const Line& ln;
+    const LinePre& pre;
+    float* acc;
+    template <int CLS> __device__ __forceinline__ bool operator()() const {
+        const Line lc = class_line<CLS>(ln);
+        bool deferred = false;
+        LINESUM_PRAGMA(unroll LINESUM_SWEEP_UNROLL)
+        for (int w = 0; w < wt; ++w) {
+            Pair p;
+            if (!pair_of(whi[w], wlo[w], lc, p)) continue;
+            if (!lorentz_lane<VOIGT>(p.d1, pre)) {
+                deferred = true;
+                continue;
+            }
+            lorentz_class_adjoint<CLS>(p, lc, pre, g[w * g_stride], acc);
+        }
+        return deferred;
+    }
+};
+template <bool VOIGT>
+__device__ __forceinline__ bool sweep_tile(const float* whi, const float* wlo,
+                                           const float* g, int g_stride,
+                                           int wt, const Line& ln,
+                                           const LinePre& pre, float* acc) {
+    return for_class(pre.cls, SweepTile<VOIGT>{whi, wlo, g, g_stride, wt, ln,
+                                               pre, acc});
+}
+
+// The pairs sweep_tile left out: the adjoint of every SD-Voigt-lane pair
+// of the same tile, in wavenumber order.
+__device__ __forceinline__ void deferred_tile(const float* whi,
+                                              const float* wlo,
+                                              const float* g, int g_stride,
+                                              int wt, const Line& ln,
+                                              const LinePre& pre,
+                                              float* acc) {
+    for (int w = 0; w < wt; ++w) {
+        Pair p;
+        if (!pair_of(whi[w], wlo[w], ln, p)) continue;
+        if (lorentz_lane<true>(p.d1, pre)) continue;
+        sd_pair_adjoint(p, ln, g[w * g_stride], acc);
+    }
+}
+
+#undef LINESUM_PRAGMA
+#undef LINESUM_STR
 #undef R
 #undef F
 

@@ -12,8 +12,11 @@ needs neither nvcc nor a GPU.
 CPU tensors go to the plain PyTorch versions given to it; CUDA tensors
 launch the kernels (or raise — there is no fallback).  Each instance
 counts its own forward launches in `.launches` and its adjoint launches
-in `.bwd_launches`.  The sum is a `torch.autograd.Function` whose
-backward is the adjoint kernel.
+in `.bwd_launches`: calls of the C entry point, so the VOIGT=true
+adjoint, whose entry point launches two kernels (the sweep over the
+Lorentz lanes and the pass over the SD-Voigt lanes it deferred), counts
+one.  The sum is a `torch.autograd.Function` whose backward is the
+adjoint kernel.
 """
 
 from __future__ import annotations
@@ -104,6 +107,13 @@ def build(verbose: bool = False) -> dict[str, Path]:
     return libs
 
 
+# monortm_linesum_backward: voigt, the reverse map and its sizes, 15
+# operand pointers, 5 sizes, 7 cotangents, the deferral scratch, the stream
+BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                + [ctypes.c_void_p] * 9)
+
+
 class _Library:
     """The loaded entry points (loaded once, at first launch)."""
 
@@ -117,11 +127,15 @@ class _Library:
             fwd = ctypes.CDLL(str(libs["forward"])).monortm_linesum_forward
             fwd.argtypes = [I, P, P, I, I] + [P] * 14 + [I] * 5 + [P, P]
             fwd.restype = I
-            bwd = ctypes.CDLL(str(libs["backward"])).monortm_linesum_backward
-            bwd.argtypes = ([I, P, P, I, I, I] + [P] * 15 + [I] * 5
-                            + [P] * 7 + [P])
+            lib = ctypes.CDLL(str(libs["backward"]))
+            bwd = lib.monortm_linesum_backward
+            bwd.argtypes = BWD_ARGTYPES
             bwd.restype = I
-            cls.fns = {"forward": fwd, "backward": bwd}
+            info = lib.monortm_linesum_backward_info
+            info.argtypes = [I, I, I, I, ctypes.POINTER(I)]
+            info.restype = I
+            cls.fns = {"forward": fwd, "backward": bwd,
+                       "backward_info": info}
         return cls.fns[name]
 
 
@@ -200,6 +214,7 @@ class LineSumKernel:
         self.plain_bwd = plain_bwd
         self.launches = 0
         self.bwd_launches = 0
+        self.deferred = None
 
     def __call__(self, pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
                  nt: int, wt: int, n_mol: int, chi_fn=None, rev=None):
@@ -236,7 +251,10 @@ class LineSumKernel:
                    nt: int, wt: int, n_mol: int, g):
         """The adjoint CUDA launch for a cotangent g [L, Wp, n_mol]:
         returns the seven cotangents in PER_LN order (None for ad and k3v
-        with VOIGT=false, whose sum reads neither)."""
+        with VOIGT=false, whose sum reads neither).  With VOIGT=true the
+        call's deferral words stay in `.deferred` (int32 [L, N], a bit per
+        reverse-map slot in which the line has SD-Voigt lanes) until the
+        next call."""
         dev = pre["stild"].device
         L, n, bits, mol0 = _line_operands(pre, mol, nt)
         k_tiles = n // nt
@@ -253,18 +271,39 @@ class LineSumKernel:
         wrt = [k for k in PER_LN if self.voigt or k not in ("ad", "k3v")]
         outs = {k: torch.empty((L, n), dtype=torch.float32, device=dev)
                 for k in wrt}
+        self.deferred = (torch.empty((L, n), dtype=torch.int32, device=dev)
+                         if self.voigt else None)
         ptr = lambda v: 0 if v is None else v.data_ptr()
         rc = _Library.get("backward")(
             int(self.voigt), ptr(rev_map), ptr(rev_valid), k_tiles, n_rev,
             n_wt, ptr(wn_hi), ptr(wn_lo), *(ptr(pre[k]) for k in PER_L),
             ptr(bits), ptr(mol0), *(ptr(pre[k]) for k in PER_LN), ptr(g),
             L, n, nt, wt, n_mol, *(ptr(outs.get(k)) for k in PER_LN),
-            _stream(dev))
+            ptr(self.deferred), _stream(dev))
         self.bwd_launches += 1
         if rc != 0:
             raise RuntimeError(f"{self.name} line-sum adjoint kernel launch "
                                f"failed: CUDA error {rc}")
         return tuple(outs.get(k) for k in PER_LN)
+
+
+    def bwd_info(self, nt: int, wt: int, n_mol: int) -> dict:
+        """How the adjoint kernels of this instantiation were built and
+        fit an SM at these tile sizes (needs a CUDA device): threads per
+        block, registers per thread, resident blocks per SM and dynamic
+        shared memory of the sweep; registers and blocks per SM of the
+        deferred pass (VOIGT=true)."""
+        out = (ctypes.c_int * 6)()
+        rc = _Library.get("backward_info")(int(self.voigt), nt, wt, n_mol,
+                                           out)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} adjoint kernel info failed: "
+                               f"CUDA error {rc}")
+        info = dict(zip(("threads", "registers", "blocks_per_sm",
+                         "smem_bytes"), out[:4]))
+        if self.voigt:
+            info["deferred"] = {"registers": out[4], "blocks_per_sm": out[5]}
+        return info
 
 
 def reverse_map(cand_map: np.ndarray, cand_valid: np.ndarray,
