@@ -33,9 +33,9 @@ Run from the repository root:  python3 chip_smoke.py
 Exits non-zero (and prints no result line) without a CUDA device or when
 any phase fails; a phase prints all of its comparisons before it fails.
 The line before the last two lists each kernel with its launches on the
-main path (`launches` counts calls of the wrapper; `kernels_per_launch`
-says how many kernels one call starts: the Voigt adjoint's two), its
-worst error against its plain version (max_abs_err, and max_rel_err = the
+main path (`launches` counts calls of the wrapper; an adjoint row's
+`kernels_per_launch` is the kernels its library started on the main path
+over those calls: the Voigt adjoint's two), its worst error against its plain version (max_abs_err, and max_rel_err = the
 worst err / max|ref| over the kernel's outputs), its time, its plain
 version's time and its bound.  The last line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -74,18 +74,35 @@ SD_PARTIALS = ("shift", "hw", "ad")
 
 # FP32 operations per kept (layer, wavenumber, line) evaluation, counted by
 # hand from csrc/linesum_math.cuh (an add, multiply, compare, divide, sqrt,
-# exp or cos is one operation), by lane class: Lorentz, Lorentz with k2,
-# SD-Voigt, SD-Voigt with k2.  SD-Voigt lanes are counted at Humlicek
-# region 1, the cheapest, and in the adjoint as one float Dual evaluation
-# at the FP32 rate, although their partials run in double beside a float
-# value (sd_shape), which takes longer.  A Lorentz lane of the adjoint is
-# counted for a line of the branch trees' plain class (k1 - k3, the
-# cheapest): pair_of 9, the lane switch 1 (VOIGT), lorentz_partials 10 per
-# shape, sls 2 (3 with k2), d sls / d hw 3, the five sums 12; what is
-# computed once per thread (LinePre) is not counted.  So the operation
-# bound is a lower bound.
-OPS = {("fwd", True): (26, 33, 82, 151), ("fwd", False): (22, 29, 0, 0),
-       ("bwd", True): (37, 48, 465, 875), ("bwd", False): (36, 47, 0, 0)}
+# exp or cos is one operation, a fused multiply-add two), by lane class:
+# Lorentz, Lorentz with k2, SD-Voigt, SD-Voigt with k2.  SD-Voigt lanes are
+# counted at Humlicek region 1, the cheapest, and in the adjoint as one
+# float Dual evaluation at the FP32 rate, although their partials run in
+# double beside a float value (sd_shape), which takes longer.  So the
+# operation bound is a lower bound.
+OPS = {("fwd", True): (26, 33, 82, 151), ("fwd", False): (22, 29, 0, 0)}
+BWD_SD_OPS = (465, 875)
+# A Lorentz lane of the adjoint, by the line's class of the branch trees
+# (linesum_math.cuh, TreeClass order) without / with k2, from
+# lorentz_class_adjoint as written for VOIGT=false; VOIGT=true adds the
+# lane switch, 1.  Every class: pair_of 9, lorentz_partials 10 per shape
+# (value 3, r 1, d/dd 3, d/dhw 3), gs 1, s_dsum - s_d1 1, the shift and hw
+# sums 2 each, the stild sum 2; a class with Y factors adds the ya and yb
+# sums, 2 each.  Then sls and its partials (s_d1, s_dsum, s_hw, s_ya, s_yb):
+#   O2 coupled, XF1   y1, y2 6, sls 3; 3, 3, 3, 3, 1           -> 63
+#   O2 coupled        sls 1; s_hw 1 (always k2)                -> 39
+#   O2                sls 1; s_hw 1                            -> 29 / 39
+#   CO2, XF15         y1 3, ped 3, sls 7; ped_d1 2, a_y1 1,
+#                     7, 4, 1 (never k2)                       -> 59
+#   CO2               ped 3, sls 2; ped_d1 2, 2, 2 (never k2)  -> 38
+#   coupled           y1 3, sls 2; 3, 2, 2, 1                  -> 44
+#     with mirror     y1, y2 6, sls 5; 3, 3, 5, 3, 3           -> 69
+#   plain             sls 1 (3 with k2); s_hw 3                -> 31 / 43
+# A value the source forms twice counts once; what a thread computes once
+# (LinePre) and products of two such constants are not counted.  The last
+# row is an uncoupled O2 line outside the window: pair_of alone.
+BWD_LORENTZ_OPS = ((63, 63), (39, 39), (29, 39), (59, 59), (38, 38),
+                   (44, 69), (31, 43), (9, 9))
 # the adjoint's count while a Lorentz lane carried dual numbers through
 # the shapes and the pedestal at every wavenumber: its bound is printed
 # beside the present one, so that times stay comparable with older ones
@@ -141,13 +158,20 @@ def cuda_ms(fn, reps):
 def lane_counts(pre, mol, wn_hi, wn_lo, cand_map, cand_valid, nt, wt,
                 n_mol, voigt):
     """Kept evaluations of one line sum by lane class (see OPS), counted on
-    this call's data with the kernels' masks, and the kept SD-Voigt lanes
-    of each (layer, line) over all wavenumbers, int64 [L, N]."""
+    this call's data with the kernels' masks; the kept SD-Voigt lanes of
+    each (layer, line) over all wavenumbers, int64 [L, N]; and the kept
+    Lorentz lanes by (row of BWD_LORENTZ_OPS, k2)."""
     dev = pre["stild"].device
     cm, cv = cand_map.cpu().numpy(), cand_valid.cpu().numpy()
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
     sd_lanes = torch.zeros(pre["stild"].shape, dtype=torch.int64, device=dev)
+    by_class = torch.zeros(2 * len(BWD_LORENTZ_OPS), dtype=torch.int64,
+                           device=dev)
     fl = {k: pre["flags"][k] > 0.5 for k in pre["flags"]}
+    w = lambda c, a, b: torch.where(c, a, b)
+    cls = w(fl["o2"], w(fl["cpl"], w(fl["xf1"], 0, 1), 2),
+            w(fl["co2"], w(fl["cpl"] & fl["xf15"], 3, 4),
+              w(fl["cpl"], 5, 6)))
     mol_ok = (mol >= 1) & (mol <= n_mol)
     c01, c99 = float(np.float32(0.01)), float(np.float32(0.99))
     for i in range(cm.shape[0]):
@@ -175,12 +199,28 @@ def lane_counts(pre, mol, wn_hi, wn_lo, cand_map, cand_valid, nt, wt,
                                    (keep & ~lor & ~k2).sum(),
                                    (keep & ~lor & k2).sum()])
             sd_lanes[:, sl] += (keep & ~lor).sum(1)
-    return counts.tolist(), sd_lanes
+            outside = (cls[sl] == 2) & (d1.abs() > 25.0)
+            row = torch.where(outside, len(BWD_LORENTZ_OPS) - 1, cls[sl])
+            by_class += torch.bincount((2 * row + k2)[keep & lor],
+                                       minlength=by_class.numel())
+    counts = counts.tolist()
+    check(int(by_class.sum()) == counts[0] + counts[1],
+          "lane counts by class do not add up")
+    return counts, sd_lanes, by_class.view(-1, 2).tolist()
 
 
 def bound(direction, voigt, counts, n_bytes, ops_table=OPS):
     """(bound_ms, bound_by): the larger of the operation and byte times."""
     ops = sum(c * o for c, o in zip(counts, ops_table[(direction, voigt)]))
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bound_bwd(voigt, counts, by_class, n_bytes):
+    """The adjoint's bound with its Lorentz lanes counted class by class."""
+    ops = sum(n * (o + voigt) for ns, os_ in zip(by_class, BWD_LORENTZ_OPS)
+              for n, o in zip(ns, os_))
+    ops += sum(c * o for c, o in zip(counts[2:], BWD_SD_OPS))
     t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -318,7 +358,7 @@ def main() -> int:
         its second kernel against those with kept SD-Voigt lanes counted
         here; `layers_with_none` must have none (their blocks leave the
         second kernel at once)."""
-        _, sd_lanes = lane_counts(*args[:9], voigt=True)
+        _, sd_lanes, _ = lane_counts(*args[:9], voigt=True)
         marked = kernels["full"].deferred != 0
         per_layer = sd_lanes.sum(1).tolist()
         log(f"  {what}: {int(sd_lanes.sum())} deferred SD-Voigt pairs in "
@@ -448,7 +488,7 @@ def main() -> int:
         k = kernels[eng]
         ms = cuda_ms(lambda: k(*args[:9]), 20)
         plain_ms = cuda_ms(lambda: k.plain(*args[:9]), 3)
-        counts, _ = lane_counts(*args[:9], voigt=k.voigt)
+        counts, _, _ = lane_counts(*args[:9], voigt=k.voigt)
         b_ms, b_by = bound("fwd", k.voigt, counts,
                            line_bytes(args, "fwd", k.voigt))
         L = args[0]["stild"].shape[0]
@@ -460,7 +500,7 @@ def main() -> int:
             "source": "monortm_tpu_torch/csrc/linesum.cu",
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "kernels_per_launch": 1}
+            "bound_by": b_by, "library_ms": None}
     phase_done(4)
 
     # ---- phase 5: each adjoint kernel vs its plain version --------------
@@ -522,12 +562,15 @@ def main() -> int:
     log("phase 6 value_and_grad of mean((tb - tb_obs)^2) at the bench "
         "workload")
     reset_counts()
+    started = {e: k.bwd_kernels_started() for e, k in kernels.items()}
     loss, grads = value_and_grad()
     torch.cuda.synchronize()
     counts6 = {e: (k.launches, k.bwd_launches)
                for e, k in kernels.items()}
+    started = {e: k.bwd_kernels_started() - started[e]
+               for e, k in kernels.items()}
     log(f"  loss {float(loss):.6e}; (forward, adjoint) launches: "
-        f"{counts6}")
+        f"{counts6}; kernels the adjoint library started: {started}")
     check(all(a > 0 and b > 0 for a, b in counts6.values()),
           f"a kernel of the path did not launch: {counts6}")
     for f, gr in grads.items():
@@ -537,7 +580,8 @@ def main() -> int:
         check(float(gr.abs().max()) > 0.0, f"zero grad {f}")
     for name, (a, b) in counts6.items():
         results[f"linesum_{kernels[name].name}"]["launches"] = a
-        results[f"linesum_bwd_{kernels[name].name}"]["launches"] = b
+        results[f"linesum_bwd_{kernels[name].name}"].update(
+            launches=b, kernels_per_launch=started[name] / b)
 
     # the small model's full-pipeline gradient against the CPU path
     sst = synthetic_state(nlay=4, batch=2, device=dev,
@@ -629,18 +673,18 @@ def main() -> int:
                                           n_mol, g), 10)
         plain_ms = cuda_ms(lambda: k.plain_bwd(pre, mol, wh, wl, cm, cv,
                                                nt, wt, n_mol, g), 1)
-        counts, _ = lane_counts(*main_args[eng][:9], voigt=k.voigt)
+        counts, _, by_class = lane_counts(*main_args[eng][:9],
+                                          voigt=k.voigt)
         n_bytes = line_bytes(main_args[eng], "bwd", k.voigt)
         d_ms, d_by = bound("bwd", k.voigt, counts, n_bytes, OPS_DUAL)
         log(f"  {eng} adjoint kernel: bound {d_ms:.4f} ms ({d_by}) at the "
             f"dual-number count of operations {OPS_DUAL[('bwd', k.voigt)]}")
-        b_ms, b_by = bound("bwd", k.voigt, counts, n_bytes)
+        b_ms, b_by = bound_bwd(k.voigt, counts, by_class, n_bytes)
         info = k.bwd_info(nt, wt, n_mol)
         log(f"  {eng} adjoint kernel: {ms:.3f} ms, plain {plain_ms:.3f} "
-            f"ms, bound {b_ms:.4f} ms ({b_by}; operations "
-            f"{OPS[('bwd', k.voigt)]}; lanes {counts}) "
-            f"(L={pre['stild'].shape[0]} layers); built {info}; "
-            f"{2 if k.voigt else 1} kernel(s) per launch of the wrapper")
+            f"ms, bound {b_ms:.4f} ms ({b_by}; lanes {counts}; Lorentz "
+            f"lanes by class without / with k2 {by_class}) "
+            f"(L={pre['stild'].shape[0]} layers); built {info}")
         results[f"linesum_bwd_{k.name}"].update({
             "name": f"linesum_bwd_{k.name}", "route": "cuda",
             "source": "monortm_tpu_torch/csrc/linesum_bwd.cu",
@@ -648,8 +692,7 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
             "bound_ms_dual_count": d_ms, "registers": info["registers"],
-            "blocks_per_sm": info["blocks_per_sm"],
-            "kernels_per_launch": 2 if k.voigt else 1})
+            "blocks_per_sm": info["blocks_per_sm"]})
     phase_done(7)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -658,12 +701,13 @@ def main() -> int:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "kernels_per_launch")
+            "bound_by", "library_ms")
     rows = list(results.values())
     check(len(rows) == 4 and all(set(keys) <= set(r) for r in rows)
           and all(r["launches"] for r in rows),
           f"incomplete kernel results: {rows}")
-    extra = ("bound_ms_dual_count", "registers", "blocks_per_sm")
+    extra = ("bound_ms_dual_count", "registers", "blocks_per_sm",
+             "kernels_per_launch")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi.stdout.strip().splitlines()[0])

@@ -18,11 +18,8 @@ other checkout's adjoint may have the entry point without the deferral
 scratch (the last pointer before the stream); a library that does not
 export `monortm_linesum_backward_info` is called that way.
 
-`--define NAME=VALUE` (repeatable) adds a build of this checkout's
-adjoint with `-DNAME=VALUE` (BWD_THREADS, BWD_MIN_BLOCKS,
-LINESUM_SWEEP_UNROLL) to the adjoint's round, for tuning in the same
-call.  Prints the register report of each build, every sample, and one
-JSON line of medians (ms) per instantiation.
+Prints the register report of each build, every sample, and one JSON
+line of medians (ms) per instantiation.
 
 Run from the repository root on a machine with a GPU:
     python3 -m monortm_tpu_torch.ab_forward --other build/parent
@@ -53,19 +50,16 @@ BATCH, NLAY, NWN = 8, 40, 1024
 FIELDS = ("p", "t", "tz", "wkl", "wbrodl", "clw")
 
 
-def _build(src: Path, tag: str, defines=()) -> ctypes.CDLL:
+def _build(src: Path, tag: str) -> ctypes.CDLL:
     """nvcc `src` with the kernels' flags into build/; prints ptxas's
     register report."""
-    flags = [f"-D{d}" for d in defines]
-    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
-    name = "".join(c if c.isalnum() else "_" for c in tag)
-    lib = lk.BUILD_DIR / f"ab-{name}-{src.stem}-{key.hexdigest()[:16]}.so"
+    key = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib = lk.BUILD_DIR / f"ab-{tag}-{src.stem}-{key}.so"
     lk.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = subprocess.run([lk._nvcc(), *lk.NVCC_FLAGS, *flags, "-Xptxas",
-                          "-v", "-o", str(lib), str(src)],
+    out = subprocess.run([lk._nvcc(), *lk.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                          str(lib), str(src)],
                          capture_output=True, text=True, timeout=600)
-    print(f"{tag} ({src} {' '.join(flags)}):\n{out.stdout}{out.stderr}",
-          flush=True)
+    print(f"{tag} ({src}):\n{out.stdout}{out.stderr}", flush=True)
     if out.returncode != 0:
         raise RuntimeError(f"nvcc {src} failed ({out.returncode})")
     return ctypes.CDLL(str(lib))
@@ -79,7 +73,10 @@ def _forward_fn(lib):
 
 
 def _backward_fn(lib):
-    """(entry point taking this checkout's arguments, info or None)."""
+    """(entry point taking this checkout's arguments, info or None).  The
+    branch for a library without the deferral scratch serves only the
+    comparison with the single-kernel adjoint that preceded the sweep /
+    deferred pair, and goes once that comparison is no longer made."""
     fn = lib.monortm_linesum_backward
     fn.restype = ctypes.c_int
     if hasattr(lib, "monortm_linesum_backward_info"):
@@ -155,8 +152,8 @@ def _ms(entry, fn, launch, reps=20):
 
 
 def _compare(entry, builds, launch, rounds, label):
-    """Interleaved samples of every build: other, this, copy, variants,
-    then the same backwards.  Returns the medians and the comparisons of
+    """Interleaved samples of every build: other, this, copy, then the
+    same backwards.  Returns the medians and the comparisons of
     `this` with `other` (every sample faster) and with `copy`."""
     order = list(builds) + list(reversed(builds))
     samples = {tag: [] for tag in builds}
@@ -184,11 +181,6 @@ def main() -> int:
     ap.add_argument("--other", required=True, type=Path,
                     help="checkout whose csrc/ kernels are compared")
     ap.add_argument("--rounds", type=int, default=5)
-    ap.add_argument("--define", action="append", default=[],
-                    metavar="NAME=VALUE",
-                    help="also time this checkout's adjoint built with "
-                         "-DNAME=VALUE (repeatable; commas join several "
-                         "defines of one build)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_forward: no CUDA device", file=sys.stderr)
@@ -202,9 +194,6 @@ def main() -> int:
                                         "other")),
            "this": _backward_fn(_build(lk.SOURCES["backward"], "this")),
            "copy": _backward_fn(_build(lk.SOURCES["backward"], "copy"))}
-    for d in a.define:
-        bwd[f"this+{d}"] = _backward_fn(_build(lk.SOURCES["backward"],
-                                               f"this+{d}", d.split(",")))
     own = dict(lk._Library.fns)     # this checkout's cached build
 
     cat = synthetic_catalog_mw(n_h2o=2048, n_o2=1024, tile=512)

@@ -31,8 +31,8 @@
 //     g[l, tile, :] and its wavenumbers in shared memory; every thread
 //     then runs over the tile's wavenumbers with its line's operands and
 //     its sums in registers, and writes each sum once.  The block is
-//     BWD_THREADS lines wide whatever the plan's line tile nt, so the
-//     grid is fine enough to fill the card;
+//     128 lines wide where the plan's line tile nt is a multiple of that
+//     (else 32), so the grid is fine enough to fill the card;
 //   - hoisted: everything of a pair that depends on the (layer, line)
 //     alone (linesum_math.cuh, LinePre) is computed once per thread,
 //     before the sweep;
@@ -63,26 +63,29 @@
 // Built like linesum.cu (nvcc -gencode arch=compute_90a,code=sm_90a -O3
 // -fmad=false -shared) and called through ctypes.  Without contraction
 // the values round as the forward's do; the partials and their sums use
-// explicit fused multiply-adds (linesum_math.cuh, mad).  Build-time
-// knobs, for tuning: BWD_THREADS, BWD_MIN_BLOCKS, LINESUM_SWEEP_UNROLL.
+// explicit fused multiply-adds (linesum_math.cuh, mad).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include "linesum_math.cuh"
+#include <atomic>
 
-#ifndef BWD_THREADS
-#define BWD_THREADS 128     // lines (threads) per block of the sweep
-#endif
-#ifndef BWD_MIN_BLOCKS
-#define BWD_MIN_BLOCKS 4    // resident blocks per SM the sweep is built for
-#endif
+#include "linesum_math.cuh"
 
 namespace {
 
 using namespace linesum;
 
+constexpr int SWEEP_THREADS = 128;      // lines (threads) per sweep block
+// Resident blocks per SM the sweep is compiled for.  The sweep fits more
+// (6 at its 78 registers), but without this bound ptxas trades registers
+// for occupancy (71 and 64 registers, 7 and 8 blocks) and the kernels
+// run 2-3% slower.
+constexpr int SWEEP_MIN_BLOCKS = 4;
 constexpr int DEFERRED_THREADS = 128;
+
+// kernels started by the entry point so far, by instantiation [voigt]
+std::atomic<int> kernels_started[2];
 
 // The operands of line n in layer l.
 template <bool VOIGT>
@@ -105,7 +108,7 @@ __device__ __forceinline__ unsigned slot_bit(int s) {
 }
 
 template <bool VOIGT>
-__global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
+__global__ void __launch_bounds__(SWEEP_THREADS, SWEEP_MIN_BLOCKS)
 linesum_bwd_sweep(
     const int* __restrict__ rmap, const int* __restrict__ rvalid,
     int n_rev, int n_wt,
@@ -227,13 +230,9 @@ __global__ void __launch_bounds__(DEFERRED_THREADS) linesum_bwd_deferred(
     d_yb[ln_idx] += acc[D_YB];
 }
 
-// threads per block of the sweep: the widest multiple of 32 up to
-// BWD_THREADS that divides the line tile (nt is a multiple of 32)
-int sweep_threads(int nt) {
-    int bt = (nt < BWD_THREADS ? nt : BWD_THREADS) / 32 * 32;
-    while (bt > 32 && nt % bt) bt -= 32;
-    return bt;
-}
+// threads per block of the sweep; a block lies in one line tile (nt is a
+// multiple of 32)
+int sweep_threads(int nt) { return nt % SWEEP_THREADS ? 32 : SWEEP_THREADS; }
 
 size_t sweep_smem(int wt, int n_mol) {
     return (static_cast<size_t>(wt) * n_mol + 2 * wt) * sizeof(float);
@@ -262,13 +261,16 @@ int launch(const int* rmap, const int* rvalid, int k_tiles, int n_rev,
         mol, shift, stild, hw, ad, k3v, ya, yb, g, n_lines, nt, wt, n_mol,
         n_wt * wt, d_shift, d_stild, d_hw, d_ad, d_k3v, d_ya, d_yb, defer);
     err = cudaGetLastError();
+    if (err == cudaSuccess) ++kernels_started[VOIGT];
     if (!VOIGT || err != cudaSuccess) return static_cast<int>(err);
     dim3 grid2((n_lines + DEFERRED_THREADS - 1) / DEFERRED_THREADS, n_layers);
     linesum_bwd_deferred<<<grid2, DEFERRED_THREADS, 0, stream>>>(
         defer, rmap, rvalid, n_rev, n_wt, wn_hi, wn_lo, nu_hi, nu_lo, sdep,
         flags, mol, shift, stild, hw, ad, k3v, ya, yb, g, n_lines, nt, wt,
         n_mol, n_wt * wt, d_shift, d_stild, d_hw, d_ad, d_k3v, d_ya, d_yb);
-    return static_cast<int>(cudaGetLastError());
+    err = cudaGetLastError();
+    if (err == cudaSuccess) ++kernels_started[VOIGT];
+    return static_cast<int>(err);
 }
 
 template <typename K>
@@ -336,4 +338,10 @@ extern "C" int monortm_linesum_backward_info(int voigt, int nt, int wt,
     if (rc) return rc;
     return kernel_info(linesum_bwd_deferred, DEFERRED_THREADS, 0, &out[4],
                        &out[5]);
+}
+
+// The kernels that monortm_linesum_backward has started in this process
+// for one instantiation (every successful <<<>>> counts one).
+extern "C" int monortm_linesum_backward_kernels_started(int voigt) {
+    return kernels_started[voigt ? 1 : 0];
 }

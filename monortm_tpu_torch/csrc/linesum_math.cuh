@@ -733,12 +733,6 @@ __device__ __forceinline__ void lorentz_class_adjoint(const Pair& p,
 
 // ---- one thread's run over a tile of wavenumbers --------------------------
 
-#ifndef LINESUM_SWEEP_UNROLL
-#define LINESUM_SWEEP_UNROLL 2
-#endif
-#define LINESUM_STR(x) #x
-#define LINESUM_PRAGMA(x) _Pragma(LINESUM_STR(x))
-
 // Adds to acc the adjoint of every Lorentz-lane pair of line ln with the
 // wt wavenumbers (whi + wlo), in wavenumber order; g[w * g_stride] is the
 // cotangent at wavenumber w and the line's molecule.  Returns true where
@@ -759,7 +753,7 @@ struct SweepTile {
     template <int CLS> __device__ __forceinline__ bool operator()() const {
         const Line lc = class_line<CLS>(ln);
         bool deferred = false;
-        LINESUM_PRAGMA(unroll LINESUM_SWEEP_UNROLL)
+#pragma unroll 2
         for (int w = 0; w < wt; ++w) {
             Pair p;
             if (!pair_of(whi[w], wlo[w], lc, p)) continue;
@@ -797,8 +791,6 @@ __device__ __forceinline__ void deferred_tile(const float* whi,
     }
 }
 
-#undef LINESUM_PRAGMA
-#undef LINESUM_STR
 #undef R
 #undef F
 

@@ -134,8 +134,11 @@ class _Library:
             info = lib.monortm_linesum_backward_info
             info.argtypes = [I, I, I, I, ctypes.POINTER(I)]
             info.restype = I
+            started = lib.monortm_linesum_backward_kernels_started
+            started.argtypes = [I]
+            started.restype = I
             cls.fns = {"forward": fwd, "backward": bwd,
-                       "backward_info": info}
+                       "backward_info": info, "backward_started": started}
         return cls.fns[name]
 
 
@@ -286,6 +289,11 @@ class LineSumKernel:
                                f"failed: CUDA error {rc}")
         return tuple(outs.get(k) for k in PER_LN)
 
+    def bwd_kernels_started(self) -> int:
+        """The kernels the adjoint's entry point has started for this
+        instantiation in this process, as the library itself counts them:
+        beside `.bwd_launches` it says how many kernels one call starts."""
+        return _Library.get("backward_started")(int(self.voigt))
 
     def bwd_info(self, nt: int, wt: int, n_mol: int) -> dict:
         """How the adjoint kernels of this instantiation were built and
