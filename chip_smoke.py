@@ -79,9 +79,32 @@ SD_PARTIALS = ("shift", "hw", "ad")
 # counted at Humlicek region 1, the cheapest, and in the adjoint as one
 # float Dual evaluation at the FP32 rate, although their partials run in
 # double beside a float value (sd_shape), which takes longer.  So the
-# operation bound is a lower bound.
+# operation bound is a lower bound.  OPS is the forward's flat count of
+# PRs 1-3 (the unhoisted evaluation, every class alike); its bound is
+# printed beside the per-class one (FWD_LORENTZ_OPS), so that times stay
+# comparable with older ones.
 OPS = {("fwd", True): (26, 33, 82, 151), ("fwd", False): (22, 29, 0, 0)}
+FWD_SD_OPS = (82, 151)
 BWD_SD_OPS = (465, 875)
+# A Lorentz lane of the forward, by the line's class of the branch trees
+# (linesum_math.cuh, TreeClass order) without / with k2, from fwd_pair and
+# fwd_tree; what a staged line carries (FwdLine) is not counted.  Every
+# class: d1 4, sls * stild and its add 2, k1 3 (d1^2, the add, the
+# divide), k2 3; the window test 1 (not coupled O2); dsum 1 and the mirror
+# test 1 where the class reads the mirror term.  Then:
+#   O2 coupled, XF1   dsum 1, y1 3, y2 3, sls 3 (always k2)  -> 22
+#   O2 coupled        dsum 1, sls 1 (always k2)              -> 14
+#   O2                window, dsum, mirror 3, sls 1          -> 13 / 16
+#   CO2, XF15         window 1, ped 3, k3 * ped 1, y1 3,
+#                     sls 6 (never k2)                       -> 23
+#   CO2               window 1, ped 3, k3 * ped 1, sls 1     -> 15
+#   coupled           window, dsum, mirror 3, y1 3, sls 3    -> 18
+#     with mirror     ... y2 3, sls 5                        -> 26
+#   plain             window, dsum, mirror 3, sls 2 (3)      -> 14 / 18
+# The last row is an uncoupled O2 line outside the window: d1 and the
+# window test.  VOIGT=true adds the lane switch, 1, to every row but it.
+FWD_LORENTZ_OPS = ((22, 22), (14, 14), (13, 16), (23, 23), (15, 15),
+                   (18, 26), (14, 18), (5, 5))
 # A Lorentz lane of the adjoint, by the line's class of the branch trees
 # (linesum_math.cuh, TreeClass order) without / with k2, from
 # lorentz_class_adjoint as written for VOIGT=false; VOIGT=true adds the
@@ -160,7 +183,7 @@ def lane_counts(pre, mol, wn_hi, wn_lo, cand_map, cand_valid, nt, wt,
     """Kept evaluations of one line sum by lane class (see OPS), counted on
     this call's data with the kernels' masks; the kept SD-Voigt lanes of
     each (layer, line) over all wavenumbers, int64 [L, N]; and the kept
-    Lorentz lanes by (row of BWD_LORENTZ_OPS, k2)."""
+    Lorentz lanes by (row of FWD_LORENTZ_OPS / BWD_LORENTZ_OPS, k2)."""
     dev = pre["stild"].device
     cm, cv = cand_map.cpu().numpy(), cand_valid.cpu().numpy()
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
@@ -216,11 +239,18 @@ def bound(direction, voigt, counts, n_bytes, ops_table=OPS):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def bound_bwd(voigt, counts, by_class, n_bytes):
-    """The adjoint's bound with its Lorentz lanes counted class by class."""
-    ops = sum(n * (o + voigt) for ns, os_ in zip(by_class, BWD_LORENTZ_OPS)
+def bound_by_class(direction, voigt, counts, by_class, n_bytes):
+    """The bound with the Lorentz lanes counted class by class
+    (FWD_LORENTZ_OPS or BWD_LORENTZ_OPS); the SD-Voigt lanes at
+    FWD_SD_OPS or BWD_SD_OPS."""
+    per_class, sd = ((FWD_LORENTZ_OPS, FWD_SD_OPS) if direction == "fwd"
+                     else (BWD_LORENTZ_OPS, BWD_SD_OPS))
+    switch = [voigt] * len(per_class)
+    if direction == "fwd":
+        switch[-1] = 0      # outside the window: no lane switch
+    ops = sum(n * (o + v) for ns, os_, v in zip(by_class, per_class, switch)
               for n, o in zip(ns, os_))
-    ops += sum(c * o for c, o in zip(counts[2:], BWD_SD_OPS))
+    ops += sum(c * o for c, o in zip(counts[2:], sd))
     t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -488,19 +518,27 @@ def main() -> int:
         k = kernels[eng]
         ms = cuda_ms(lambda: k(*args[:9]), 20)
         plain_ms = cuda_ms(lambda: k.plain(*args[:9]), 3)
-        counts, _, _ = lane_counts(*args[:9], voigt=k.voigt)
-        b_ms, b_by = bound("fwd", k.voigt, counts,
-                           line_bytes(args, "fwd", k.voigt))
+        counts, _, by_class = lane_counts(*args[:9], voigt=k.voigt)
+        n_bytes = line_bytes(args, "fwd", k.voigt)
+        f_ms, f_by = bound("fwd", k.voigt, counts, n_bytes)
+        log(f"  {eng} kernel: bound {f_ms:.4f} ms ({f_by}) at the flat "
+            f"count of operations {OPS[('fwd', k.voigt)]}")
+        b_ms, b_by = bound_by_class("fwd", k.voigt, counts, by_class,
+                                    n_bytes)
+        info = k.fwd_info(args[6], args[7], args[8])
         L = args[0]["stild"].shape[0]
         log(f"  {eng} kernel: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}; lanes lor/lor+k2/sd/sd+k2 "
-            f"{counts}) (L={L} layers)")
+            f"{counts}; Lorentz lanes by class without / with k2 "
+            f"{by_class}) (L={L} layers); built {info}")
         results[f"linesum_{k.name}"] = {
             "name": f"linesum_{k.name}", "route": "cuda",
             "source": "monortm_tpu_torch/csrc/linesum.cu",
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "bound_by": b_by, "library_ms": None, "bound_ms_flat_count": f_ms,
+            "registers": info["registers"],
+            "blocks_per_sm": info["blocks_per_sm"]}
     phase_done(4)
 
     # ---- phase 5: each adjoint kernel vs its plain version --------------
@@ -679,7 +717,8 @@ def main() -> int:
         d_ms, d_by = bound("bwd", k.voigt, counts, n_bytes, OPS_DUAL)
         log(f"  {eng} adjoint kernel: bound {d_ms:.4f} ms ({d_by}) at the "
             f"dual-number count of operations {OPS_DUAL[('bwd', k.voigt)]}")
-        b_ms, b_by = bound_bwd(k.voigt, counts, by_class, n_bytes)
+        b_ms, b_by = bound_by_class("bwd", k.voigt, counts, by_class,
+                                    n_bytes)
         info = k.bwd_info(nt, wt, n_mol)
         log(f"  {eng} adjoint kernel: {ms:.3f} ms, plain {plain_ms:.3f} "
             f"ms, bound {b_ms:.4f} ms ({b_by}; lanes {counts}; Lorentz "
@@ -706,8 +745,8 @@ def main() -> int:
     check(len(rows) == 4 and all(set(keys) <= set(r) for r in rows)
           and all(r["launches"] for r in rows),
           f"incomplete kernel results: {rows}")
-    extra = ("bound_ms_dual_count", "registers", "blocks_per_sm",
-             "kernels_per_launch")
+    extra = ("bound_ms_flat_count", "bound_ms_dual_count", "registers",
+             "blocks_per_sm", "kernels_per_launch")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi.stdout.strip().splitlines()[0])

@@ -3,23 +3,35 @@
 Builds `csrc/linesum.cu` and `csrc/linesum_bwd.cu` of this checkout and
 of another one (a directory holding `monortm_tpu_torch/csrc/` with the
 same C entry points, for example `git archive` of an earlier commit),
-each with nvcc's `-Xptxas -v` report, and times them on the same
-bench-workload operands as `chip_smoke.py`'s main path (8 profiles x 40
-layers x 1024 wavenumbers x 3074 lines, hybrid split; the adjoints on the
-real cotangent of the retrieval loss): CUDA events, 20 launches per
-sample, in the order other, this, copy, copy, this, other, repeated
-`--rounds` times.  `copy` is a second build of this checkout's source:
-the control that says how far two equal kernels read apart.
+one nvcc each with its `-Xptxas -v` report, all started together, and
+times them on the same bench-workload operands as `chip_smoke.py`'s main
+path (8 profiles x 40 layers x 1024 wavenumbers x 3074 lines, hybrid
+split; the adjoints on the real cotangent of the retrieval loss): CUDA
+events, 20 launches per sample, in the order other, this, copy, then the
+same backwards, repeated `--rounds` times.  `copy` is a second build of
+this checkout's source: the control that says how far two equal kernels
+read apart.  Each `--variant DIR` (another checkout, for example this
+tree with one constant changed) adds its forward kernels to the same
+interleaving.
 
-Forward outputs must be bitwise equal between the two checkouts; the
+Forward outputs must be bitwise equal to the other checkout's; the
 adjoints' cotangents need not be, and their largest difference is
-printed for each, in units of the other checkout's largest value.  The
-other checkout's adjoint may have the entry point without the deferral
-scratch (the last pointer before the stream); a library that does not
-export `monortm_linesum_backward_info` is called that way.
+printed for each, in units of the other checkout's largest value
+(`--same-adjoint` requires 0 and two runs bitwise equal).  The other
+checkout's adjoint may have the entry point without the deferral scratch
+(the last pointer before the stream); a library that does not export
+`monortm_linesum_backward_info` is called that way.  Where a forward
+library exports `monortm_linesum_forward_info` its registers and blocks
+per SM are printed; where it exports
+`monortm_linesum_forward_block_times` (an instrumented copy of the kernel
+that records each block's start and end by `%globaltimer`, its SM and its
+blockIdx.x; none is committed), the spread of its block times on each
+instantiation.
 
 Prints the register report of each build, every sample, and one JSON
-line of medians (ms) per instantiation.
+line of medians (ms) per instantiation.  Exits 1, after printing every
+reading, when a forward is not bitwise equal (or, with `--same-adjoint`,
+an adjoint).
 
 Run from the repository root on a machine with a GPU:
     python3 -m monortm_tpu_torch.ab_forward --other build/parent
@@ -50,26 +62,73 @@ BATCH, NLAY, NWN = 8, 40, 1024
 FIELDS = ("p", "t", "tz", "wkl", "wbrodl", "clw")
 
 
-def _build(src: Path, tag: str) -> ctypes.CDLL:
-    """nvcc `src` with the kernels' flags into build/; prints ptxas's
-    register report."""
-    key = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    lib = lk.BUILD_DIR / f"ab-{tag}-{src.stem}-{key}.so"
+def _build_all(jobs):
+    """nvcc each (tag, source) with the kernels' flags into build/, all
+    started together; prints ptxas's register reports and returns
+    {(tag, source stem): CDLL}."""
     lk.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = subprocess.run([lk._nvcc(), *lk.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-                          str(lib), str(src)],
-                         capture_output=True, text=True, timeout=600)
-    print(f"{tag} ({src}):\n{out.stdout}{out.stderr}", flush=True)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvcc {src} failed ({out.returncode})")
-    return ctypes.CDLL(str(lib))
+    procs = {}
+    for tag, src in jobs:
+        blob = src.read_bytes() + (src.parent / "linesum_math.cuh").read_bytes()
+        key = hashlib.sha256(blob).hexdigest()[:16]
+        lib = lk.BUILD_DIR / f"ab-{tag}-{src.stem}-{key}.so"
+        procs[(tag, src.stem)] = (src, lib, subprocess.Popen(
+            [lk._nvcc(), *lk.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs, failed = {}, []
+    for (tag, stem), (src, lib, proc) in procs.items():
+        out, _ = proc.communicate(timeout=900)
+        print(f"{tag} ({src}):\n{out}", flush=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc {src} failed ({proc.returncode})")
+        else:
+            libs[(tag, stem)] = ctypes.CDLL(str(lib))
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return libs
 
 
 def _forward_fn(lib):
-    fn = lib.monortm_linesum_forward
-    fn.argtypes = lk._Library.get("forward").argtypes
-    fn.restype = ctypes.c_int
-    return fn, None
+    """(entry point, info or None, block times or None)."""
+    fns = lk.entry_points(lib)
+    times = None
+    if hasattr(lib, "monortm_linesum_forward_block_times"):
+        times = lib.monortm_linesum_forward_block_times
+        times.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        times.restype = ctypes.c_int
+    return fns["forward"], fns.get("forward_info"), times
+
+
+def _block_spread(times, launch):
+    """The spread of block times of one launch through an instrumented
+    library, which reports per block its start and end (ns, %globaltimer),
+    its SM and its blockIdx.x: block durations, when 50/90/99% of blocks
+    had ended, each SM's last end, and the median duration by blockIdx.x
+    (the wavenumber tile and sub-tile)."""
+    launch()
+    torch.cuda.synchronize()
+    buf = np.zeros((1 << 16, 4), np.uint64)
+    n = times(buf.ctypes.data, buf.shape[0])
+    if n <= 0:
+        return None
+    t = buf[:n, :2].astype(np.float64)
+    t -= t[:, 0].min()
+    t /= 1e3
+    dur, end = t[:, 1] - t[:, 0], np.sort(t[:, 1])
+    sm, bx = buf[:n, 2].astype(np.int64), buf[:n, 3].astype(np.int64)
+    sm_end = np.array([t[sm == s, 1].max() for s in np.unique(sm)])
+    pct = lambda v: {q: float(np.percentile(v, p)) for q, p in
+                     (("min", 0), ("median", 50), ("p90", 90), ("max", 100))}
+    return {"blocks": int(n), "span_us": float(end[-1]),
+            "block_us": pct(dur),
+            "ended_us": {f"{p}%": float(end[int(p / 100 * (n - 1))])
+                         for p in (50, 90, 99)},
+            "sms": int(len(sm_end)), "sm_end_us": pct(sm_end),
+            "blocks_per_sm": pct(np.bincount(sm)[np.unique(sm)]),
+            "median_us_by_blockIdx_x": [
+                round(float(np.median(dur[bx == x])), 1)
+                for x in np.unique(bx)]}
 
 
 def _backward_fn(lib):
@@ -77,14 +136,10 @@ def _backward_fn(lib):
     branch for a library without the deferral scratch serves only the
     comparison with the single-kernel adjoint that preceded the sweep /
     deferred pair, and goes once that comparison is no longer made."""
-    fn = lib.monortm_linesum_backward
-    fn.restype = ctypes.c_int
-    if hasattr(lib, "monortm_linesum_backward_info"):
-        fn.argtypes = lk.BWD_ARGTYPES
-        info = lib.monortm_linesum_backward_info
-        info.argtypes = lk._Library.get("backward_info").argtypes
-        info.restype = ctypes.c_int
-        return fn, info
+    fns = lk.entry_points(lib)
+    fn = fns["backward"]
+    if "backward_info" in fns:
+        return fn, fns["backward_info"]
     # the entry point without the deferral scratch
     fn.argtypes = lk.BWD_ARGTYPES[:-1]
     return (lambda *a: fn(*a[:-2], a[-1])), None
@@ -169,32 +224,43 @@ def _compare(entry, builds, launch, rounds, label):
     return out
 
 
-def _info(kernel, info, args):
+def _info(kernel, info, args, direction="backward"):
     if info is None:
         return None
-    lk._Library.fns["backward_info"] = info
-    return kernel.bwd_info(args[6], args[7], args[8])
+    lk._Library.fns[f"{direction}_info"] = info
+    get = kernel.fwd_info if direction == "forward" else kernel.bwd_info
+    return get(args[6], args[7], args[8])
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", required=True, type=Path,
                     help="checkout whose csrc/ kernels are compared")
+    ap.add_argument("--variant", action="append", default=[], type=Path,
+                    help="another checkout whose forward kernels join the "
+                         "interleaving (repeatable)")
+    ap.add_argument("--same-adjoint", action="store_true",
+                    help="fail unless the adjoints' cotangents are bitwise "
+                         "the other checkout's")
     ap.add_argument("--rounds", type=int, default=5)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_forward: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
-    other_csrc = a.other / "monortm_tpu_torch" / "csrc"
-    fwd = {"other": _forward_fn(_build(other_csrc / "linesum.cu", "other")),
-           "this": _forward_fn(_build(lk.SOURCES["forward"], "this")),
-           "copy": _forward_fn(_build(lk.SOURCES["forward"], "copy"))}
-    bwd = {"other": _backward_fn(_build(other_csrc / "linesum_bwd.cu",
-                                        "other")),
-           "this": _backward_fn(_build(lk.SOURCES["backward"], "this")),
-           "copy": _backward_fn(_build(lk.SOURCES["backward"], "copy"))}
-    own = dict(lk._Library.fns)     # this checkout's cached build
+    csrc = {"other": a.other / "monortm_tpu_torch" / "csrc",
+            "this": lk.CSRC, "copy": lk.CSRC}
+    csrc.update({f"variant:{v.name}": v / "monortm_tpu_torch" / "csrc"
+                 for v in a.variant})
+    libs = _build_all([(tag, d / "linesum.cu") for tag, d in csrc.items()]
+                      + [(tag, csrc[tag] / "linesum_bwd.cu")
+                         for tag in ("other", "this", "copy")])
+    fwd = {tag: _forward_fn(libs[(tag, "linesum")]) for tag in csrc}
+    bwd = {tag: _backward_fn(libs[(tag, "linesum_bwd")])
+           for tag in ("other", "this", "copy")}
+    # the wrappers launch through this checkout's build, swapped per tag
+    lk._Library.fns = {**lk.entry_points(libs[("this", "linesum")]),
+                       **lk.entry_points(libs[("this", "linesum_bwd")])}
 
     cat = synthetic_catalog_mw(n_h2o=2048, n_o2=1024, tile=512)
     wn = np.linspace(0.3, 55.0, NWN)
@@ -204,7 +270,7 @@ def main() -> int:
     engine, lor = model.engine_split(state)
     voigt = [i for i in range(NLAY) if i not in set(lor)]
     cot = _cotangents(model, state, engine, lor, dev)
-    result = {}
+    result, faults = {}, []
     for name, kernel, layers in (("voigt", VOIGT_KERNEL, voigt),
                                  ("lorentz", LORENTZ_KERNEL, list(lor))):
         args = _operands(model, state, "full" if kernel.voigt else "lorentz",
@@ -213,10 +279,26 @@ def main() -> int:
         launch = lambda: kernel.launch(*args[:9])
         lk._Library.fns["forward"] = fwd["other"][0]
         ref = launch()
-        lk._Library.fns["forward"] = fwd["this"][0]
-        same = bool(torch.equal(launch(), ref))
+        same = {}
+        for tag, (fn, _, _) in fwd.items():
+            lk._Library.fns["forward"] = fn
+            same[tag] = bool(torch.equal(launch(), ref))
+            if not same[tag]:
+                faults.append(f"{name} forward of {tag} is not bitwise "
+                              f"the other checkout's")
         r = _compare("forward", fwd, launch, a.rounds, f"{name} forward")
-        r["bitwise_equal"] = same
+        r["bitwise_equal"] = all(same.values())
+        r["bitwise_equal_by_build"] = same
+        r["built"] = {tag: _info(kernel, info, args, "forward")
+                      for tag, (_, info, _) in fwd.items()}
+        spread = {}
+        for tag, (fn, _, times) in fwd.items():
+            if times is not None:
+                lk._Library.fns["forward"] = fn
+                spread[tag] = _block_spread(times, launch)
+        if spread:
+            r["block_times"] = spread
+        print(f"{name} forward: {json.dumps(r)}", flush=True)
         result[f"{name}_forward"] = r
 
         # adjoint: the cotangents' largest difference, then times
@@ -237,19 +319,26 @@ def main() -> int:
             apart[tag]["same_run_to_run"] = all(
                 torch.equal(x, y) for x, y in zip(got, again)
                 if x is not None)
+            if a.same_adjoint and not (
+                    apart[tag]["same_run_to_run"]
+                    and all(torch.equal(x, y) for x, y in zip(got, ref)
+                            if y is not None)):
+                faults.append(f"{name} adjoint of {tag} is not bitwise the "
+                              f"other checkout's")
         r = _compare("backward", bwd, launch, a.rounds, f"{name} adjoint")
         r["apart_from_other_of_max"] = apart
         r["built"] = {tag: _info(kernel, info, args)
                       for tag, (_, info) in bwd.items()}
         print(f"{name} adjoint: {json.dumps(r)}", flush=True)
         result[f"{name}_adjoint"] = r
-    lk._Library.fns.update(own)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip())
     print(json.dumps(result))
-    return 0
+    for f in faults:
+        print(f"ab_forward: {f}", file=sys.stderr)
+    return 1 if faults else 0
 
 
 if __name__ == "__main__":

@@ -32,11 +32,22 @@
 // the all-dual evaluation of either lane, is what the tests hold the
 // closed forms against.
 //
+// The forward (last section) walks a chunk of staged lines per thread
+// (fwd_chunk): per-(layer, line) terms hoisted into FwdLine by the thread
+// that stages the line, a loop per class of the branch trees, the SD-Voigt
+// lane a call.  Its sums are bitwise those of pair_of -> shapes ->
+// branch_trees, line by line.
+//
 // This header uses no CUDA runtime API; it needs only the math functions
-// and the __device__ / __forceinline__ qualifiers, so a host compiler
-// builds it too (tests/test_torch_sd_partials.py, test_torch_bwd_math.py).
+// and the __device__ / __forceinline__ / __noinline__ qualifiers, so a
+// host compiler builds it too (tests/test_torch_sd_partials.py,
+// test_torch_bwd_math.py, test_torch_fwd_math.py).
 
 #pragma once
+
+#ifndef __noinline__
+#define __noinline__ __attribute__((noinline))
+#endif
 
 namespace linesum {
 
@@ -788,6 +799,222 @@ __device__ __forceinline__ void deferred_tile(const float* whi,
         if (!pair_of(whi[w], wlo[w], ln, p)) continue;
         if (lorentz_lane<true>(p.d1, pre)) continue;
         sd_pair_adjoint(p, ln, g[w * g_stride], acc);
+    }
+}
+
+// ---- the forward: one thread's run over a chunk of staged lines -----------
+//
+// The forward kernel (linesum.cu) stages a chunk of a candidate tile's
+// lines in shared memory for a block of wavenumbers; every thread then
+// walks the staged lines in order for its NW wavenumbers.  What depends on
+// the (layer, line) alone is computed once, by the thread that stages the
+// line (FwdLine), and the walk is compiled once per class of the branch
+// trees (for_class), over runs of consecutive lines of one class and
+// molecule.  The sum of each (wavenumber, molecule) takes the same adds of
+// the same values, formed by the same float operations, in the same order
+// as the unhoisted evaluation (pair_of, shapes, branch_trees, then
+// acc[m] += sls * stild, line by line): the results are bitwise those of
+// that loop (tests/test_torch_fwd_math.py holds them so).
+
+// One staged line in one layer: the raw operands the walk reads and what
+// it would otherwise recompute at every wavenumber.
+struct alignas(16) FwdLine {
+    float nu_hi, nu_lo, shift, xnu;   // d1 and dsum as pair_of forms them
+    float hw_pi, hw2, k3, stild;      // lorentz's hw/pi and hw^2; pedestal
+    float ya, yb, y1pk3, y2pk3;       // Y factors; y1p * k3 and y2p * k3
+    float ad100;                      // the lane switch: 100 aD ...
+    int zlor;                         // ... and zeta > 0.99 (VOIGT)
+    int flags;
+    int key;                          // fwd_key
+};
+// The operands an SD-Voigt lane reads beside them (VOIGT).
+struct FwdSd {
+    float hw, ad, sdep, k3v;
+};
+
+template <bool VOIGT>
+__device__ __forceinline__ FwdLine fwd_line(const Line& ln) {
+    FwdLine f;
+    f.nu_hi = ln.nu_hi;
+    f.nu_lo = ln.nu_lo;
+    f.shift = ln.shift;
+    f.xnu = ln.nu_hi + (ln.nu_lo + ln.shift);
+    f.hw_pi = ln.hw * INV_PI;
+    f.hw2 = ln.hw * ln.hw;
+    f.k3 = pedestal<VOIGT>(ln.hw);
+    f.stild = ln.stild;
+    f.ya = ln.ya;
+    f.yb = ln.yb;
+    f.y1pk3 = (1.0f + ln.ya * CUT + ln.yb) * f.k3;
+    f.y2pk3 = (1.0f - ln.ya * CUT + ln.yb) * f.k3;
+    f.ad100 = 100.0f * ln.ad;
+    f.zlor = VOIGT ? ln.hw * F(0.01) > ln.ad * F(0.99) : 1;
+    f.flags = ln.flags;
+    f.key = -1;
+    return f;
+}
+
+__device__ __forceinline__ FwdSd fwd_sd(const Line& ln) {
+    return FwdSd{ln.hw, ln.ad, ln.sdep, ln.k3v};
+}
+
+// The key of a line staged for the wavenumbers [wmin, wmax]: molecule * 8
+// + class of the branch trees, or -1 for a line that adds nothing to any
+// of them: invalid, of no molecule in [0, n_mol), or (all but coupled O2)
+// outside the 25 cm^-1 window of every one of them by a margin far wider
+// than d1's rounding (a few ulps of |wn| + |nu| + |shift|).  An uncoupled
+// O2 line adds sls = 0 there, 0 * stild, which changes no bit of a sum
+// that is never -0 (stild finite).
+__device__ __forceinline__ int fwd_key(int fl, int m, int n_mol, float xnu,
+                                       float shift, float wmin, float wmax) {
+    if (!(fl & FL_VALID) || m < 0 || m >= n_mol) return -1;
+    const int cls = tree_class(fl);
+    if (cls != T_O2_CPL_XF1 && cls != T_O2_CPL) {
+        const float tol = 1.0e-3f + 1.0e-5f * (fabsf(wmin) + fabsf(wmax)
+                                               + fabsf(xnu) + fabsf(shift));
+        if (xnu < wmin - (CUT + tol) || xnu > wmax + (CUT + tol)) return -1;
+    }
+    return m * 8 + cls;
+}
+
+// sls of an SD-Voigt lane, as `shapes` and `branch_trees` form it.  Not
+// inlined: nearly no lane takes it, and inlined, the Humlicek regions'
+// registers would be the whole walk's.
+inline __device__ __noinline__ float sd_lane_sls(const FwdLine& f,
+                                                 const FwdSd& sd, float d1,
+                                                 float dsum) {
+    const Line ln{f.nu_hi, f.nu_lo, sd.sdep, f.shift, f.stild,
+                  sd.hw, sd.ad, sd.k3v, f.ya, f.yb, f.flags};
+    Pair p;
+    p.d1 = d1;
+    p.dsum = dsum;
+    p.mirror = (dsum - CUT) <= 0.0f;
+    p.within = fabsf(d1) <= CUT;
+    p.o2 = ln.flags & FL_O2;
+    p.cpl = ln.flags & FL_CPL;
+    p.need_k2 = p.mirror || (p.o2 && p.cpl);
+    const float k1 = sd_shape<float>(d1, ln);
+    const float k2 = p.need_k2 ? sd_shape<float>(dsum, ln) : 0.0f;
+    return branch_trees(p, ln, k1, k2, ln.k3v);
+}
+
+// branch_trees for class CLS on a Lorentz lane inside the window (coupled
+// O2: anywhere), with the products of per-line terms taken from f.
+template <int CLS>
+__device__ __forceinline__ float fwd_tree(const FwdLine& f, float d1,
+                                          float dsum, bool mirror, float k1,
+                                          float k2) {
+    const float k3 = f.k3;
+    if (CLS == T_O2_CPL_XF1) {
+        const float y1 = 1.0f + f.ya * d1 + f.yb;
+        const float y2 = 1.0f - f.ya * dsum + f.yb;
+        return k1 * y1 + k2 * y2;
+    }
+    if (CLS == T_O2_CPL) return k1 + k2;
+    if (CLS == T_O2) return k1 + (mirror ? k2 : 0.0f);
+    if (CLS == T_CO2_XF15 || CLS == T_CO2) {
+        const float ped = 2.0f - (d1 * d1) / CUT2;
+        const float xp4 = k3 * ped;
+        if (CLS == T_CO2) return k1 - xp4;
+        const float y1 = 1.0f + f.ya * d1 + f.yb;
+        return k1 * y1 - xp4 - k3 * ((y1 - 1.0f) * ped);
+    }
+    if (CLS == T_CPL) {
+        const float y1 = 1.0f + f.ya * d1 + f.yb;
+        const float y2 = 1.0f - f.ya * dsum + f.yb;
+        return y1 * k1 - f.y1pk3 + (mirror ? y2 * k2 - f.y2pk3 : 0.0f);
+    }
+    return k1 - k3 + (mirror ? k2 - k3 : 0.0f);
+}
+
+// acc += sls * stild for line f, staged at s[q] and sd[q], of class CLS
+// at wavenumber whi + wlo, where it is kept.  (dsum - 25) <= 0 is
+// dsum <= 25 exactly: for dsum in [12.5, 50] the difference is exact,
+// outside that range it has dsum's side.
+template <bool VOIGT, int CLS>
+__device__ __forceinline__ void fwd_pair(const FwdLine& f, const FwdLine* s,
+                                         const FwdSd* sd, int q, float whi,
+                                         float wlo, float& acc) {
+    constexpr bool o2_cpl = CLS == T_O2_CPL_XF1 || CLS == T_O2_CPL;
+    const float d1 = (whi - f.nu_hi) + (wlo - f.nu_lo) - f.shift;
+    // outside the window only coupled O2 adds (uncoupled O2: see fwd_key)
+    if (!o2_cpl && !(fabsf(d1) <= CUT)) return;
+    const float dsum = whi + f.xnu;
+    const bool mirror = dsum <= CUT;
+    float sls;
+    if (VOIGT && !(fabsf(d1) > f.ad100 || f.zlor)) {
+        sls = sd_lane_sls(s[q], sd[q], d1, dsum);
+    } else {
+        const float k1 = f.hw_pi / (f.hw2 + d1 * d1);
+        float k2 = 0.0f;
+        if (CLS != T_CO2 && CLS != T_CO2_XF15 && (o2_cpl || mirror))
+            k2 = f.hw_pi / (f.hw2 + dsum * dsum);
+        sls = fwd_tree<CLS>(f, d1, dsum, mirror, k1, k2);
+    }
+    acc += sls * f.stild;
+}
+
+// The run of staged lines [q, ...) that share line q's key, each at the
+// thread's NW wavenumbers; leaves q at the run's end.  The lines are
+// read through a pointer carried from one iteration to the next (through
+// s[q], ptxas re-derives the shared window's base in every iteration,
+// behind the divide's slow-path call), and q is counted beside it (p - s
+// is a difference of generic pointers).
+template <bool VOIGT, int NW>
+struct FwdRun {
+    const FwdLine* s;
+    const FwdSd* sd;
+    const float* whi;
+    const float* wlo;
+    float* acc;
+    int& q;
+    template <int CLS> __device__ __forceinline__ void operator()() const {
+        const FwdLine* p = s + q;
+        const int k = p->key;
+#pragma unroll 2
+        do {
+            const FwdLine f = *p;
+#pragma unroll
+            for (int r = 0; r < NW; ++r)
+                fwd_pair<VOIGT, CLS>(f, s, sd, q, whi[r], wlo[r], acc[r]);
+            ++q;
+        } while ((++p)->key == k);
+    }
+};
+
+// Writes the running sums acc[r] of molecule cur_m back to rows[r].
+template <int NW>
+__device__ __forceinline__ void fwd_flush(float* acc, int cur_m,
+                                          float* const* rows) {
+    if (cur_m < 0) return;
+#pragma unroll
+    for (int r = 0; r < NW; ++r)
+        if (rows[r]) rows[r][cur_m] = acc[r];
+}
+
+// One thread's walk over the n lines staged in s / sd, their keys in
+// s[].key (none -1) and s[n].key = -1, for its NW wavenumbers
+// whi[r] + wlo[r].  acc[r] is the running sum of molecule cur_m (-1: none
+// yet) at wavenumber r, whose sums live at rows[r][0, n_mol) (null: a
+// lane without a wavenumber): the sum is written back and the next
+// molecule's read where the molecule changes, which the catalog's order
+// makes rare.  Call fwd_flush after the last chunk.
+template <bool VOIGT, int NW>
+__device__ __forceinline__ void fwd_chunk(const FwdLine* s, const FwdSd* sd,
+                                          int n, const float* whi,
+                                          const float* wlo, float* acc,
+                                          int& cur_m, float* const* rows) {
+    int q = 0;
+    while (q < n) {
+        const int key = s[q].key;
+        const int m = key >> 3;
+        if (m != cur_m) {
+            fwd_flush<NW>(acc, cur_m, rows);
+#pragma unroll
+            for (int r = 0; r < NW; ++r) acc[r] = rows[r] ? rows[r][m] : 0.0f;
+            cur_m = m;
+        }
+        for_class(key & 7, FwdRun<VOIGT, NW>{s, sd, whi, wlo, acc, q});
     }
 }
 

@@ -107,6 +107,13 @@ def build(verbose: bool = False) -> dict[str, Path]:
     return libs
 
 
+# monortm_linesum_forward: voigt, the candidate map and its sizes, 14
+# operand pointers, 5 sizes, the output, the stream
+FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
+                + [ctypes.c_void_p] * 2)
+# monortm_linesum_{forward,backward}_info: voigt, nt, wt, n_mol, int out[6]
+INFO_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
 # monortm_linesum_backward: voigt, the reverse map and its sizes, 15
 # operand pointers, 5 sizes, 7 cotangents, the deferral scratch, the stream
 BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
@@ -123,23 +130,28 @@ class _Library:
     def get(cls, name: str):
         if not cls.fns:
             libs = build()
-            P, I = ctypes.c_void_p, ctypes.c_int
-            fwd = ctypes.CDLL(str(libs["forward"])).monortm_linesum_forward
-            fwd.argtypes = [I, P, P, I, I] + [P] * 14 + [I] * 5 + [P, P]
-            fwd.restype = I
-            lib = ctypes.CDLL(str(libs["backward"]))
-            bwd = lib.monortm_linesum_backward
-            bwd.argtypes = BWD_ARGTYPES
-            bwd.restype = I
-            info = lib.monortm_linesum_backward_info
-            info.argtypes = [I, I, I, I, ctypes.POINTER(I)]
-            info.restype = I
-            started = lib.monortm_linesum_backward_kernels_started
-            started.argtypes = [I]
-            started.restype = I
-            cls.fns = {"forward": fwd, "backward": bwd,
-                       "backward_info": info, "backward_started": started}
+            cls.fns = {**entry_points(ctypes.CDLL(str(libs["forward"]))),
+                       **entry_points(ctypes.CDLL(str(libs["backward"])))}
         return cls.fns[name]
+
+
+def entry_points(lib: ctypes.CDLL) -> dict:
+    """The entry points a built library exports, typed, by role."""
+    sigs = {"forward": ("monortm_linesum_forward", FWD_ARGTYPES),
+            "forward_info": ("monortm_linesum_forward_info", INFO_ARGTYPES),
+            "backward": ("monortm_linesum_backward", BWD_ARGTYPES),
+            "backward_info": ("monortm_linesum_backward_info",
+                              INFO_ARGTYPES),
+            "backward_started": ("monortm_linesum_backward_kernels_started",
+                                 [ctypes.c_int])}
+    fns = {}
+    for role, (sym, argtypes) in sigs.items():
+        if hasattr(lib, sym):
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[role] = fn
+    return fns
 
 
 def _check_f32(dev, **tensors):
@@ -288,6 +300,21 @@ class LineSumKernel:
             raise RuntimeError(f"{self.name} line-sum adjoint kernel launch "
                                f"failed: CUDA error {rc}")
         return tuple(outs.get(k) for k in PER_LN)
+
+    def fwd_info(self, nt: int, wt: int, n_mol: int) -> dict:
+        """How the forward kernel of this instantiation was built and fits
+        an SM at these tile sizes (needs a CUDA device): threads per
+        block, registers per thread, resident blocks per SM, static shared
+        memory, wavenumbers per thread and blocks per wavenumber tile."""
+        out = (ctypes.c_int * 6)()
+        rc = _Library.get("forward_info")(int(self.voigt), nt, wt, n_mol,
+                                          out)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} forward kernel info failed: "
+                               f"CUDA error {rc}")
+        return dict(zip(("threads", "registers", "blocks_per_sm",
+                         "smem_bytes", "wn_per_thread", "blocks_per_tile"),
+                        out))
 
     def bwd_kernels_started(self) -> int:
         """The kernels the adjoint's entry point has started for this

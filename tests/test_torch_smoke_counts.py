@@ -1,9 +1,10 @@
-"""chip_smoke.py's count of the adjoint's work, on the CPU at a small size.
+"""chip_smoke.py's count of the kernels' work, on the CPU at a small size.
 
-The adjoint kernels' bound counts each kept Lorentz lane at the operations
-of its line's class of the branch trees (`BWD_LORENTZ_OPS`, in the order of
-`TreeClass` in csrc/linesum_math.cuh).  These tests hold the per-class
-counts against the four lane counts and against the catalog's flags.
+The bounds of the forward and adjoint kernels count each kept Lorentz
+lane at the operations of its line's class of the branch trees
+(`FWD_LORENTZ_OPS`, `BWD_LORENTZ_OPS`, in the order of `TreeClass` in
+csrc/linesum_math.cuh).  These tests hold the per-class counts against
+the four lane counts and against the catalog's flags.
 """
 
 import sys
@@ -62,6 +63,33 @@ def test_lorentz_lanes_by_class_add_up(engine, p_hpa):
     ops = (by_class[0][1] * (63 + voigt) + by_class[6][0] * (31 + voigt)
            + by_class[6][1] * (43 + voigt) + counts[2] * 465
            + counts[3] * 875)
-    ms, by = cs.bound_bwd(voigt, counts, by_class, 0)
+    ms, by = cs.bound_by_class("bwd", voigt, counts, by_class, 0)
     assert by == "operations"
     assert ms == pytest.approx(ops / cs.PEAK_FLOPS * 1e3, rel=1e-12)
+
+
+@pytest.mark.parametrize("engine,p_hpa", [("full", 1013.0), ("full", 0.02),
+                                          ("lorentz", 1013.0)])
+def test_forward_class_counts_add_up_to_the_lorentz_lanes(engine, p_hpa):
+    args = _operands(engine, p_hpa)
+    voigt = engine == "full"
+    counts, _, by_class = cs.lane_counts(*args, voigt=voigt)
+    assert len(cs.FWD_LORENTZ_OPS) == len(by_class)
+    # every Lorentz lane falls in one class row, with or without k2
+    assert [sum(r[k] for r in by_class) for k in (0, 1)] == counts[:2]
+    assert counts[0] + counts[1] > 0
+    if not voigt:
+        assert counts[2:] == [0, 0]
+    # coupled O2 with XF1 always forms k2, plain lines only with the mirror
+    # term; the forward's bound follows FWD_LORENTZ_OPS, the lane switch
+    # adding one per Lorentz lane with VOIGT
+    assert by_class[0][0] == 0 and by_class[6][1] < by_class[6][0]
+    ops = (by_class[0][1] * (22 + voigt) + by_class[6][0] * (14 + voigt)
+           + by_class[6][1] * (18 + voigt) + counts[2] * 82
+           + counts[3] * 151)
+    ms, by = cs.bound_by_class("fwd", voigt, counts, by_class, 0)
+    assert by == "operations"
+    assert ms == pytest.approx(ops / cs.PEAK_FLOPS * 1e3, rel=1e-12)
+    # below the flat count of PRs 1-3, which costs every lane as unhoisted
+    flat, _ = cs.bound("fwd", voigt, counts, 0)
+    assert ms < flat
