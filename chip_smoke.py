@@ -27,7 +27,17 @@ on the GPU):
     zero, the small model's gradient against the CPU path, and central
     differences at one layer of each engine (SD-Voigt, all-Lorentz);
   7 timings: value_and_grad and forward medians (interleaved), each
-    adjoint kernel beside its plain version, peak memory.
+    adjoint kernel beside its plain version, peak memory;
+  8 the pipeline (`pipeline.run`, what `python -m monortm_tpu_torch.cli`
+    runs) at full width: a rundir written with the port's own writers
+    (TAPE3 of the same 3074 lines, MONORTM.IN with the 1024 wavenumbers
+    as an explicit list, MONORTM_PROF.IN of 64 profiles x 40 layers
+    written as TAPE7), run once to warm and then 3 times each with the
+    chunk cap forced to 64 and to 8 profiles; wall seconds, profiles/s,
+    the stage report and each forward kernel's launches; every Tb finite,
+    MONORTM.OUT byte-identical between two runs, profile 1's Tb and total
+    OD against the port's CPU pipeline on a 1-profile copy, and a small
+    IATM=1 rundir (US standard, 0-30 km) on the card to finite Tb.
 
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero (and prints no result line) without a CUDA device or when
@@ -43,11 +53,15 @@ version's time and its bound.  The last line of stdout is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -133,6 +147,28 @@ OPS_DUAL = {("bwd", True): (140, 188, 465, 875),
             ("bwd", False): (131, 179, 0, 0)}
 PEAK_FLOPS = 67e12   # H100 SXM FP32, non-tensor
 PEAK_BYTES = 3.35e12
+
+# phase 8: the pipeline's rundir.  MONORTM.IN records 1.1-1.4 of an IATM=0
+# run (ICNTNM=1, IEMIT=1, IPLOT=1, explicit wavenumber list, TBOUND 0,
+# emissivity 1) and of an IATM=1 run over 0.2-1.2 cm^-1 whose records
+# 3.1-3.3 layer the US standard atmosphere from 0 to 30 km, looking up
+# from the ground (tests/test_atmos.py CASE1_REST)
+PIPE_NPROF, PIPE_CAPS, PIPE_REPS = 64, (64, 8), 3
+REC12 = ("    1         1         1              1         {iatm}"
+         "              0    0")
+REC14 = ("     0.    1.0       0.000E+00 0.000E+00 0.000E+00 0.000E+00 "
+         "0.000E+00")
+IATM0_TAPE5 = ("$ chip smoke: synthetic microwave run\n" + REC12.format(iatm=0)
+               + "\n-0.300E+00 5.500E+01" + " 0.000E+00" * 6
+               + "    0      0.000E+00    0\n{nwn}\n{wn}" + REC14 + "\n%%%%\n")
+IATM1_TAPE5 = "\n".join([
+    "$ chip smoke: IATM=1, US standard 0-30 km", REC12.format(iatm=1),
+    " 2.000E-01 1.200E+00 0.000E+00 1.000E-01" + " 0.000E+00" * 4
+    + "    0      0.000E+00    0", REC14,
+    "    6    2    0    1    1   22    1",
+    "     0.000    30.000       0.000",
+    "     0.000     3.000     3.000     0.000     0.000",
+    "-1", "%%%%"]) + "\n"
 
 
 def log(*a):
@@ -267,6 +303,161 @@ def line_bytes(args, direction, voigt):
     if direction == "fwd":
         return inputs + sf
     return inputs + sf + per_ln * L * n * 4
+
+
+def write_rundir(d: Path, raw, keep: int) -> None:
+    """TAPE3 (the lines `raw`), MONORTM.IN and MONORTM_PROF.IN of phase 8,
+    written with the port's writers; MONORTM_PROF.IN holds the first
+    `keep` profiles of synthetic_state(nlay=NLAY, batch=PIPE_NPROF),
+    written as TAPE7 (levels from 1013 to 45 hPa, looking up)."""
+    from monortm_tpu_torch.io.profin import Profile
+    from monortm_tpu_torch.io.tape3 import write_tape3
+    from monortm_tpu_torch.io.tape7 import write_tape7
+    from monortm_tpu_torch.testing import synthetic_state
+    from monortm_tpu_torch.types import HostState, ProfileMeta
+
+    d.mkdir(parents=True, exist_ok=True)
+    write_tape3(d / "TAPE3", raw)
+    wn = np.linspace(0.3, 55.0, NWN)
+    (d / "MONORTM.IN").write_text(IATM0_TAPE5.format(
+        nwn=NWN, wn="".join(f"{w:19.13f}\n" for w in wn)))
+    st = synthetic_state(nlay=NLAY, batch=PIPE_NPROF, device="cpu",
+                         dtype=torch.float64)
+    pz = np.geomspace(1013.0, 45.0, NLAY + 1)
+    altz = -7.0 * np.log(pz / 1013.0)
+    profs = [Profile(
+        state=HostState(**{f: getattr(st, f)[i].numpy() for f in FIELDS}),
+        meta=ProfileMeta(nmol=22, angle=0.0, h1=0.0, h2=float(altz[-1]),
+                         altz=altz, pz=pz), hmod="SYNTHETIC")
+        for i in range(keep)]
+    write_tape7(d / "MONORTM_PROF.IN", profs, xid="chip smoke")
+
+
+def phase8_pipeline(tmp: Path, kernels, reset_counts) -> dict:
+    """Phase 8 (see the module docstring); returns each forward kernel's
+    launches in the first timed run at the cap of 64."""
+    from monortm_tpu_torch import pipeline
+    from monortm_tpu_torch.io.tape3 import RawLines
+    from monortm_tpu_torch.testing import synthetic_catalog_mw
+
+    # the first N2 line moved to the front, so that every 250-record panel
+    # of the TAPE3 ends on a line and not on an O2 coupling record: the
+    # reader skips a panel whose last record's wavenumber field (there a
+    # coupling coefficient, negative for some) lies below max(0, v1 - 25)
+    # (RDLNFL's panel skip), and this way the run keeps all 3074 lines
+    raw = synthetic_catalog_mw(n_h2o=2048, n_o2=1024, raw_lines=True)
+    order = np.r_[len(raw) - 2, :len(raw) - 2, len(raw) - 1]
+    raw = RawLines(**{f: getattr(raw, f)[order]
+                      for f in RawLines.__dataclass_fields__})
+    write_rundir(tmp / "rundir", raw, PIPE_NPROF)
+    write_rundir(tmp / "one", raw, 1)
+    src = tmp / "rundir"
+    files = dict(filein=src / "MONORTM.IN", fileprof=src / "MONORTM_PROF.IN",
+                 hfile=src / "TAPE3")
+    best_max_batch = pipeline._max_batch
+
+    def drive(outdir, cap=None, **kw):
+        """One run with stdout kept; returns (result, wall s, stdout)."""
+        pipeline._max_batch = (best_max_batch if cap is None
+                               else lambda *a, **k: cap)
+        buf = io.StringIO()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = pipeline.run(**{**files, **kw}, outdir=outdir,
+                                   device="cuda")
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0, buf.getvalue()
+        finally:
+            pipeline._max_batch = best_max_batch
+
+    def stage_report(outdir):
+        text = (outdir / "MONORTM.LOG").read_text()
+        return text[text.index(" HOST PULL"):].rstrip()
+
+    res, wall, _ = drive(tmp / "warm")
+    n_lines = int((tmp / "warm" / "MONORTM.LOG").read_text()
+                  .split("TOTAL NUMBER OF LINES =")[1].split()[0])
+    log(f"  warm run (cap from the device's free memory: "
+        f"{[n for n, _, _ in res.engines]} profiles per chunk): "
+        f"{wall:.3f} s; {n_lines} lines read from TAPE3")
+    check(n_lines == 3074, f"the pipeline read {n_lines} lines, not 3074")
+    launches = None
+    outs = {}
+    for cap in PIPE_CAPS:
+        walls = []
+        for rep in range(PIPE_REPS):
+            out = tmp / f"cap{cap}_{rep}"
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            res, wall, stdout = drive(out, cap=cap)
+            counts = {e: k.launches for e, k in kernels.items()}
+            walls.append(wall)
+            tb = np.stack(res.tb)
+            log(f"  cap {cap} run {rep + 1}: {wall:.3f} s, "
+                f"{PIPE_NPROF / wall:.3f} profiles/s; forward kernel "
+                f"launches {counts}; chunks (profiles, engine, all-Lorentz "
+                f"layers) {res.engines}; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            check(tb.shape == (PIPE_NPROF, NWN), f"tb shape {tb.shape}")
+            if not np.isfinite(tb).all():
+                FAILED.append(f"cap {cap} run {rep + 1}: non-finite Tb")
+            if stdout.count("PROCESSING PROFILE NUMBER") != PIPE_NPROF:
+                FAILED.append(f"cap {cap} run {rep + 1}: wrote "
+                              f"{stdout.count('PROCESSING')} profiles")
+            if not all(n > 0 for n in counts.values()):
+                FAILED.append(f"cap {cap} run {rep + 1}: a forward kernel "
+                              f"did not launch: {counts}; engines "
+                              f"{res.engines}")
+            if launches is None:
+                launches = counts
+            outs[(cap, rep)] = (out / "MONORTM.OUT").read_bytes()
+        log(f"  cap {cap}: median {statistics.median(walls):.3f} s, "
+            f"{PIPE_NPROF / statistics.median(walls):.3f} profiles/s "
+            f"(walls {[round(w, 3) for w in walls]})")
+        log("  " + stage_report(tmp / f"cap{cap}_{PIPE_REPS - 1}")
+            .replace("\n", "\n  "))
+        for rep in range(1, PIPE_REPS):
+            if outs[(cap, rep)] != outs[(cap, 0)]:
+                FAILED.append(f"cap {cap}: MONORTM.OUT of run {rep + 1} "
+                              f"differs from run 1")
+    log(f"  MONORTM.OUT byte-identical between runs of one cap: "
+        f"{all(outs[(c, r)] == outs[(c, 0)] for c in PIPE_CAPS for r in range(PIPE_REPS))}"
+        f"; cap {PIPE_CAPS[0]} vs cap {PIPE_CAPS[1]}: "
+        f"{outs[(PIPE_CAPS[0], 0)] == outs[(PIPE_CAPS[1], 0)]}")
+
+    # profile 1 against the port's CPU pipeline (plain line sums) on a
+    # 1-profile copy of the rundir
+    gpu = res.results[0]
+    t0 = time.perf_counter()
+    one = tmp / "one"
+    files_one = dict(filein=one / "MONORTM.IN",
+                     fileprof=one / "MONORTM_PROF.IN", hfile=one / "TAPE3")
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref = pipeline.run(**files_one, outdir=one / "out",
+                           device="cpu").results[0]
+    log(f"  CPU pipeline (1 profile) in {time.perf_counter() - t0:.1f} s")
+    tb_err = float(np.max(np.abs(gpu.tb - ref.tb)))
+    log(f"  profile 1 tb vs CPU pipeline: max_abs_err={tb_err:.3e} K")
+    if tb_err > TB_ATOL:
+        FAILED.append(f"profile 1 Tb differs from the CPU pipeline by "
+                      f"{tb_err} K")
+    compare(torch.as_tensor(gpu.otot), torch.as_tensor(ref.otot),
+            "profile 1 total OD vs CPU pipeline")
+
+    # IATM=1: the layering on the host, the rest on the card
+    (tmp / "iatm1").mkdir()
+    (tmp / "iatm1" / "MONORTM.IN").write_text(IATM1_TAPE5)
+    res1, wall, _ = drive(tmp / "iatm1" / "out",
+                          filein=tmp / "iatm1" / "MONORTM.IN")
+    tb1 = np.stack(res1.tb)
+    log(f"  IATM=1 run: {wall:.3f} s, {tb1.shape[0]} profile x "
+        f"{tb1.shape[1]} wavenumbers, {res1.engines}, Tb "
+        f"{float(tb1.min()):.4f}-{float(tb1.max()):.4f} K")
+    if tb1.shape != (1, 11) or not np.isfinite(tb1).all():
+        FAILED.append(f"IATM=1 run: Tb {tb1}")
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -734,6 +925,16 @@ def main() -> int:
             "blocks_per_sm": info["blocks_per_sm"]})
     phase_done(7)
 
+    # ---- phase 8: the pipeline at full width ----------------------------
+    log(f"phase 8 pipeline: {PIPE_NPROF} profiles x {NLAY} layers x {NWN} "
+        f"wavenumbers x {n_lines} lines, chunk caps {PIPE_CAPS}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        pipe = phase8_pipeline(Path(tmp), kernels, reset_counts)
+    for eng, k in kernels.items():
+        results[f"linesum_{k.name}"]["pipeline_launches"] = \
+            pipe["launches"][eng]
+    phase_done(8)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -746,7 +947,7 @@ def main() -> int:
           and all(r["launches"] for r in rows),
           f"incomplete kernel results: {rows}")
     extra = ("bound_ms_flat_count", "bound_ms_dual_count", "registers",
-             "blocks_per_sm", "kernels_per_launch")
+             "blocks_per_sm", "kernels_per_launch", "pipeline_launches")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi.stdout.strip().splitlines()[0])

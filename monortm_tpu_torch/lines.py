@@ -1,11 +1,13 @@
 """Line catalog: host-side preparation of TAPE3 records into packed,
 device-ready struct-of-arrays.
 
-A copy of `group`, `resolve`, `pack` and their types from
-`monortm_tpu.lines` (the TAPE3 file reader `load_catalog` is not copied),
-so that the port imports nothing of the JAX package.  The port's models
-read only a catalog's fields, so a `PackedCatalog` of either package
-serves; tests/test_torch_copies.py holds the two packers equal.
+A copy of `group`, `resolve`, `pack`, `load_catalog` and their types from
+`monortm_tpu.lines`, so that the port imports nothing of the JAX package.
+`load_catalog` always takes the pure-Python group -> resolve -> pack path
+(the JAX package's native C++ group+resolve is its fast path, and this
+path its fallback and oracle).  The port's models read only a catalog's
+fields, so a `PackedCatalog` of either package serves;
+tests/test_torch_copies.py holds the two packers equal.
 
 Three stages, each replicating reference semantics exactly:
 
@@ -40,7 +42,7 @@ import numpy as np
 
 from monortm_tpu_torch import constants as cst
 from monortm_tpu_torch.data import loader
-from monortm_tpu_torch.io.tape3 import RawLines
+from monortm_tpu_torch.io.tape3 import RawLines, read_tape3
 
 MXBRDMOL = 7
 NMOL = 39
@@ -330,3 +332,8 @@ def pack(r: ResolvedLines, tile: int = 128) -> PackedCatalog:
         brd_hw=padded(r.brd_hw), brd_tmp=padded(r.brd_tmp),
         brd_shft=padded(r.brd_shft),
     )
+
+
+def load_catalog(path, v1: float, v2: float, tile: int = 128) -> PackedCatalog:
+    """TAPE3 file -> packed catalog for wavenumber range [v1, v2]."""
+    return pack(resolve(group(read_tape3(path, v1, v2))), tile=tile)

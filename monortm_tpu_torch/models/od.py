@@ -15,7 +15,8 @@ layer is in the Lorentz regime, on its own 128/128 plan).  "hybrid" splits
 the layer axis between them (`engine_split` picks the layers).
 
 Not ported: the dense `line_od_block` engine, float64 runs,
-cross-sections (od_xsec), meshes.
+cross-sections (ops/xsec.py; `od_xsec` only adds an OD made elsewhere),
+meshes.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ class ODResult:
     od_by_mol: Any      # [..., W, M, L] line OD per molecule
     oc: Any             # dict species -> [..., L, W] continuum OD
     od_clw: Any         # [..., L, W]
+    od_xsec: Any = None  # [..., L, W] extra OD from the host, or None
 
 
 def build_plan(catalog: PackedCatalog, host_cat: dict, wn64: np.ndarray,
@@ -175,7 +177,10 @@ class ODModel:
             raise NotImplementedError(
                 "only float32 runs are ported; float64 needs the dense "
                 "line_od_block engine, which is not ported yet")
-        self.device = torch.device(device)
+        # the device a tensor made there reports: a bare "cuda" becomes the
+        # current card ("cuda:0"), so that `_check` accepts states made on
+        # "cuda" (a torch.device("cuda") compares unequal to "cuda:0")
+        self.device = torch.empty(0, device=device).device
         self.wn64 = np.asarray(wn, np.float64)
         self.nwn = len(self.wn64)
         self.nmol = int(nmol)
@@ -295,11 +300,15 @@ class ODModel:
         return "full", ()
 
     def __call__(self, state: LayerState, engine: str = "full",
-                 lor_layers=None) -> ODResult:
+                 lor_layers=None, od_xsec=None) -> ODResult:
         """Full OD computation (modm.f90:200-272).
 
         od_total / od_by_mol come out wn-major, [..., W, L] and
         [..., W, M, L], for the RT solver; the rest [..., L, W].
+        od_xsec: an optional [..., L, W] tensor on the model's device added
+        to the total last, as the JAX package adds its host-made
+        cross-section OD (the pipeline passes the TES cloud file's OD
+        there; cross-sections themselves are not ported).
         """
         dtype = self.dtype
         state = self._check(state)
@@ -322,7 +331,11 @@ class ODModel:
         for sp in SPECIES[:-1]:
             total = total + oc[sp]
         total = total + oc["rayleigh"] + o_clw
+        o_x = None
+        if od_xsec is not None:
+            o_x = od_xsec.to(dtype)
+            total = total + o_x
 
         return ODResult(od_total=total.movedim(-2, -1),
                         od_by_mol=od_lines.movedim(-3, -1), oc=oc,
-                        od_clw=o_clw)
+                        od_clw=o_clw, od_xsec=o_x)

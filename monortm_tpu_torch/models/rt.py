@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from monortm_tpu_torch import constants as c
@@ -114,7 +115,7 @@ def calctmr(od, t, tz, wn):
 
 class RTParts(NamedTuple):
     """Outputs of the O(W x L) path-radiance recurrences; the O(W)
-    boundary combine can then run on the host."""
+    boundary combine runs on the host (combine_boundary_np)."""
     rup: torch.Tensor      # upwelling path radiance   [..., nwn]
     rdn: torch.Tensor      # downwelling path radiance [..., nwn]
     trtot: torch.Tensor    # total transmittance       [..., nwn]
@@ -122,7 +123,58 @@ class RTParts(NamedTuple):
 
 
 def rt_parts(od, t, tz, wn) -> RTParts:
-    """The layer-recurrence half of rtm."""
+    """The layer-recurrence half of rtm: everything that needs the
+    [..., W, L] optical depths, so that only O(W) arrays leave the
+    device in the pipeline."""
     rup, rdn, trtot, sumexp_dn, odtot = rad_up_dn(od, t, tz, wn)
     radtmr = torch.sum(sumexp_dn, dim=-1) / (-torch.expm1(-odtot))
     return RTParts(rup=rup, rdn=rdn, trtot=trtot, radtmr=radtmr)
+
+
+def combine_boundary_np(wn, rup, rdn, trtot, radtmr, tsfc, emis, refl,
+                        irt: int, dtype=None, tsky: float = c.TSKY):
+    """Boundary combine + Planck inversions in host NumPy.
+
+    A copy of `monortm_tpu.models.rt.combine_boundary_np`: rtm()'s tail
+    (RTMmono.f90:113-155) on the O(W) arrays the pipeline pulls to the
+    host anyway, one NumPy program whatever device made them.
+
+    Returns (rad, tb, tmr) as numpy arrays in `dtype` (default: the
+    dtype of rup).
+    """
+    dt = np.dtype(dtype or np.asarray(rup).dtype)
+    wn = np.asarray(wn, dt)
+    rup = np.asarray(rup, dt)
+    rdn = np.asarray(rdn, dt)
+    trtot = np.asarray(trtot, dt)
+    radtmr = np.asarray(radtmr, dt)
+
+    def planck_np(t):
+        t = np.asarray(t, dt)
+        return (dt.type(c.RADCN1) * wn ** 3
+                / np.expm1(wn * (dt.type(c.RADCN2) / t)))
+
+    def tb_np(rad):
+        x = dt.type(c.RADCN1) * wn ** 3 / rad
+        return dt.type(c.RADCN2) * wn / np.log1p(x)
+
+    if irt in (2, 3):
+        tsfc = tsky
+    with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
+        # T=0 boundaries legitimately drive expm1 -> inf -> planck 0,
+        # matching the semantics of rtm()
+        surfrad = planck_np(tsfc)
+        cosmos = planck_np(tsky)
+        emis = np.asarray(emis, dt)
+        refl = np.asarray(refl, dt)
+
+        if irt == 1:
+            rad = rup + trtot * (emis * surfrad
+                                 + refl * (rdn + trtot * cosmos))
+        elif irt == 2:
+            rad = rup + trtot * (rdn + trtot * cosmos)
+        elif irt == 3:
+            rad = rdn + trtot * cosmos
+        else:
+            raise ValueError(f"irt must be 1, 2 or 3; got {irt}")
+        return rad, tb_np(rad), tb_np(radtmr)

@@ -60,6 +60,26 @@ class ContinuumFactors:
     xn2cn: float = 1.0
     xrayl: float = 1.0
 
+    @staticmethod
+    def from_icntnm(icntnm: int, values: tuple[float, ...] | None = None
+                    ) -> "ContinuumFactors":
+        """ICNTNM 0-6 combos (CntnmFactors.f90:143-186; 6 = explicit)."""
+        if icntnm == 0:
+            return ContinuumFactors(0, 0, 0, 0, 0, 0, 0)
+        if icntnm == 1:
+            return ContinuumFactors()
+        if icntnm == 2:
+            return ContinuumFactors(xself=0.0)
+        if icntnm == 3:
+            return ContinuumFactors(xfrgn=0.0)
+        if icntnm == 4:
+            return ContinuumFactors(xself=0.0, xfrgn=0.0)
+        if icntnm == 5:
+            return ContinuumFactors(xrayl=0.0)
+        if icntnm == 6:
+            return ContinuumFactors(*values)
+        raise ValueError(f"invalid ICNTNM {icntnm}")
+
 
 def _window(v1abs: float, v2abs: float, v1s: float, v2s: float, dvs: float,
             npts: int, eps: float = 0.01):

@@ -1,0 +1,690 @@
+"""End-to-end run pipeline: MONORTM.IN (+ MONORTM_PROF.IN, TAPE3) ->
+MONORTM.OUT, mirroring the reference driver loop (monortm.f90:316-588).
+
+A port of `monortm_tpu.pipeline.run` to one device (the CUDA card unless
+the caller asks for the CPU).  The host half is the JAX package's numpy
+code, copied: parsing, layering, profile scaling, the MONORTM.LOG echo
+and tables, chunking of equal-shape profiles and the writer.  The device
+half, per chunk of profiles stacked into one [B, nlay] state:
+
+- the engine split (`ODModel.engine_split`, on the model's device,
+  margin 0): layers whose every line is in the Lorentz regime take the
+  line sum's VOIGT=false instantiation, the rest VOIGT=true;
+- the OD model (line-sum kernels, continuum, cloud) and the layer sums of
+  everything the writer prints, in a fixed sequential order, so that only
+  [B, W] and [B, W, M] arrays cross to the host unless IOD=1 / NetCDF
+  asks for per-layer ones;
+- the RT layer recurrences (`rt_parts`); the O(W) boundary combine and
+  Planck inversions then run in host numpy (`combine_boundary_np`).
+
+A producer thread parses, layers and preps profiles (numpy only) while
+the consumer thread, which makes every CUDA call, runs the device work;
+the device work of chunk N+1 is enqueued before chunk N is pulled.
+Nothing moves to the CPU behind the caller's back: a run on "cuda"
+without a card raises, and a kernel that fails to build or launch fails
+the run.
+
+Not ported (ROADMAP): cross-sections (IXSECT >= 1 raises), float64 runs
+(the dense `line_od_block` engine), meshes and multi-controller runs.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import queue
+import threading
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+from monortm_tpu_torch import __version__
+from monortm_tpu_torch import constants as cst
+from monortm_tpu_torch.atmos.tape5_atm import profiles_from_tape5_iter
+from monortm_tpu_torch.convert import state_from_numpy
+from monortm_tpu_torch.data.loader import HMOLC
+from monortm_tpu_torch.io import emis as emis_io
+from monortm_tpu_torch.io.cldod import cloud_od_on_grid
+from monortm_tpu_torch.io.output import (OutputWriter, ProfileOutput,
+                                         write_netcdf)
+from monortm_tpu_torch.io.profin import read_profiles
+from monortm_tpu_torch.io.tape3 import read_tape3_header
+from monortm_tpu_torch.io.tape5 import Tape5Reader, count_profiles
+from monortm_tpu_torch.io.tape7 import write_tape7
+from monortm_tpu_torch.lines import load_catalog
+from monortm_tpu_torch.models.monortm import ForwardResult, MonoRTM
+from monortm_tpu_torch.models.od import ODResult
+from monortm_tpu_torch.models.rt import (RTParts, RTResult,
+                                         combine_boundary_np, rt_parts)
+from monortm_tpu_torch.ops.lineshape import LineConfig
+from monortm_tpu_torch.types import HostState, irt_from_angle
+from monortm_tpu_torch.utils.trace import StageTimer, profile_trace
+
+
+def profil_scal(wkl: np.ndarray, wbrodl: np.ndarray, nmol: int,
+                hmol_scal: str, xmol_scal: np.ndarray,
+                nmol_scal: int) -> np.ndarray:
+    """Profile scaling (profil_scal_sub, monortm_sub.F90:937-1044).
+
+    wkl: [nlay, 39] column densities -> returns scaled copy.
+    """
+    wkl = np.array(wkl, np.float64)
+    wmt = wkl.sum(axis=0)
+    wsum_brod = float(np.sum(wbrodl))
+    wsum_drair = (0.0 if nmol >= 22 else wsum_brod) + wmt[1:nmol].sum()
+
+    for m in range(nmol_scal):
+        hm = hmol_scal[m] if m < len(hmol_scal) else " "
+        xm = float(xmol_scal[m]) if m < len(xmol_scal) else 1.0
+        if hm == " ":
+            fac = 1.0
+        elif hm == "0":
+            fac = 0.0
+        elif hm == "1":
+            fac = xm
+        elif hm in "Cc":
+            fac = xm / wmt[m]
+        elif hm in "Mm":
+            if wsum_drair <= 0:
+                raise ValueError("mixing ratio failure: wsum_drair = 0")
+            fac = xm / (wmt[m] / wsum_drair)
+        elif hm in "Pp":
+            if m != 0:
+                raise ValueError("PWV scaling only valid for H2O")
+            fac = (xm / cst.PWV_CM_PER_MOLEC_CM2) / wmt[0]
+        elif hm in "Dd":
+            fac = (xm * cst.DOBSON_TO_MOLEC_CM2) / wmt[m]
+        else:
+            raise ValueError(f"unknown scaling code {hm!r}")
+        wkl[:, m] *= fac
+    return wkl
+
+
+def integr(wkl: np.ndarray, clw: np.ndarray):
+    """Column PWV [cm] and CLW [mm] (INTEGR, monortm_sub.F90:831-845)."""
+    pwv = float(np.sum(wkl[:, 0])) * cst.PWV_CM_PER_MOLEC_CM2
+    return pwv, float(np.sum(clw))
+
+
+# the reference's hand-centred 8-char labels (DATA HMOLC,
+# lblatm.f90:179-188), printed through A10 edits in the LOG tables
+_HMOLC8 = (
+    "  H2O   ", "  CO2   ", "   O3   ", "  N2O   ", "   CO   ",
+    "  CH4   ", "   O2   ", "   NO   ", "  SO2   ", "  NO2   ",
+    "  NH3   ", " HNO3   ", "   OH   ", "   HF   ", "  HCL   ",
+    "  HBR   ", "   HI   ", "  CLO   ", "  OCS   ", " H2CO   ",
+    " HOCL   ", "   N2   ", "  HCN   ", " CH3CL  ", " H2O2   ",
+    " C2H2   ", " C2H6   ", "  PH3   ", " COF2   ", "  SF6   ",
+    "  H2S   ", " HCOOH  ", "  HO2   ", "   O+   ", " ClONO2 ",
+    "   NO+  ", "  HOBr  ", " C2H4   ", " CH3OH  ")
+
+
+def _fort_hmolid(m: int) -> str:
+    """HMOLC(m) through an A10 edit (2 leading blanks)."""
+    return "  " + _HMOLC8[m]
+
+
+def _log_layer_table(log, p, t, wkl, wbrodl, nmol):
+    """Per-layer column-amount + mixing-ratio tables into MONORTM.LOG,
+    byte-matching the reference's IFORM=1 format statements
+    974/980/985/976/979 (monortm_sub.F90:1052-1209; lblatm.f90:1219-1244
+    logs the same layout for IATM=1 paths).
+
+    Deviation (documented): in the molecules-8+ mixing-ratio block the
+    reference divides by a stale WDRAIR from the previous loop (the
+    variable is not recomputed per layer, monortm_sub.F90:1160-1185);
+    here the per-layer dry-air density is used for every block.
+    """
+    p = np.asarray(p, np.float64)
+    t = np.asarray(t, np.float64)
+    wkl = np.asarray(wkl, np.float64)
+    wbrodl = np.asarray(wbrodl, np.float64)
+    nlay = len(p)
+    holn2 = "  OTHER "
+
+    wmt = wkl.sum(axis=0)
+    wtot = wkl[:, :7].sum(axis=1) + wbrodl
+    pwtd = float((p * wtot).sum() / wtot.sum())
+    twtd = float((t * wtot).sum() / wtot.sum())
+
+    def hdr974(names):
+        log.write("0" + " " * 53
+                  + "MOLECULAR AMOUNTS (MOL/CM**2) BY LAYER \n")
+        log.write(" " * 13 + "P(MB)" + " " * 6 + "T(K)" + " " * 5
+                  + "".join(f"{n:>10s}" + " " * 5 for n in names) + "\n")
+
+    def row980(lbl, pv, tv, vals):
+        # C-level %-formatting: this table is the host-prep hot spot at
+        # many-profile scale
+        log.write("0%3d%15.7f%9.2f  " % (lbl, pv, tv)
+                  + ("%15.7E" * len(vals)) % tuple(vals) + "\n")
+
+    # molecular amounts, 8 columns per block (974/980/985): block 1 is
+    # mols 1-7 + OTHER, later blocks mols 8-15, 16-23, ... (MLO=8,8)
+    for mlo in [0] + list(range(7, nmol, 8)):
+        mhi = min(mlo + 8, nmol)
+        if mlo == 0:
+            names = [_fort_hmolid(m)[2:] for m in range(7)] + [holn2]
+            cols = lambda k: list(wkl[k, :7]) + [wbrodl[k]]
+            tot = list(wmt[:7]) + [float(wbrodl.sum())]
+        else:
+            log.write("\n" * 5)          # format 970 (////)
+            names = [_fort_hmolid(m)[2:] for m in range(mlo, mhi)]
+            cols = lambda k: list(wkl[k, mlo:mhi])
+            tot = list(wmt[mlo:mhi])
+        hdr974(names)
+        for k in range(nlay):
+            row980(k + 1, p[k], t[k], cols(k))
+        if nlay > 1:
+            log.write("0" + " " * 54
+                      + "ACCUMULATED MOLECULAR AMOUNTS FOR TOTAL PATH\n")
+            row980(nlay, pwtd, twtd, tot)
+
+    # mixing ratios vs dry air (976/980/979)
+    wdrair = wbrodl + wkl[:, 1:nmol].sum(axis=1)
+
+    def hdr976(names):
+        log.write("\n1" + " " * 54
+                  + "----------------------------------\n")
+        log.write("0" + " " * 60 + "MIXING RATIOS BY LAYER \n")
+        log.write(" " * 10 + "P(MB)" + " " * 6 + "T(K)" + " " * 5
+                  + "".join(f"{n:>10s}" + " " * 5 for n in names) + "\n")
+
+    for mlo in [0] + list(range(7, nmol, 8)):
+        mhi = min(mlo + 8, nmol)
+        if mlo == 0:
+            names = [_fort_hmolid(m)[2:] for m in range(7)] + [holn2]
+            cols = lambda k: list(wkl[k, :7] / wdrair[k]) + [wbrodl[k]]
+        else:
+            if nlay < 5:
+                log.write("\n" * 5)      # format 970
+            names = [_fort_hmolid(m)[2:] for m in range(mlo, mhi)]
+            cols = lambda k: list(wkl[k, mlo:mhi] / wdrair[k])
+        hdr976(names)
+        for k in range(nlay):
+            if wdrair[k] == 0.0:
+                log.write("\n0  MIXING RATIO IS UNDEFINED. "
+                          "DRYAIR DENSITY=0.0\n")
+            else:
+                row980(k + 1, p[k], t[k], cols(k))
+
+
+@dataclasses.dataclass
+class RunResult:
+    wn: np.ndarray
+    tb: list          # per profile [W]
+    rad: list
+    results: list     # per profile io.output.ProfileOutput
+    # per chunk: (profiles, engine, number of all-Lorentz layers)
+    engines: list = dataclasses.field(default_factory=list)
+
+
+def _index_tree(x, i):
+    """Per-profile numpy view into one batched output container."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: _index_tree(v, i) for k, v in x.items()}
+    return np.asarray(x)[i]
+
+
+def _slice_result(res, i):
+    """Profile i's view of a batched ForwardResult (host numpy)."""
+    od = ODResult(od_total=_index_tree(res.od.od_total, i),
+                  od_by_mol=_index_tree(res.od.od_by_mol, i),
+                  oc=_index_tree(res.od.oc, i),
+                  od_clw=_index_tree(res.od.od_clw, i),
+                  od_xsec=_index_tree(res.od.od_xsec, i))
+    rt = RTResult(*(_index_tree(v, i) for v in res.rt))
+    return ForwardResult(rt=rt, od=od, emis=res.emis, refl=res.refl)
+
+
+def _device_budget_bytes(device: torch.device) -> float:
+    """Memory for one chunk's device work: 75% of what the card has free
+    (`torch.cuda.mem_get_info`), a fixed 2 GB on the CPU."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return 0.75 * float(free)
+    return 2.0e9
+
+
+def _max_batch(nwn: int, nlay: int, nmol: int, n_lines: int,
+               budget_bytes: float) -> int:
+    """Cap the profile batch of a chunk so that its device work fits.
+
+    Per profile: the [W, M, L] line OD and the [W, L] totals and
+    continua (the JAX package's estimate), plus the prologue's
+    per-(layer, line) operands, ~64 float32 arrays live at once.  This
+    cap is what bounds a chunk on the card: the port keeps no limit on
+    line-sum evaluations per call, since a CUDA launch has no execution
+    time limit."""
+    per = max(1, nwn * nlay * (nmol + 6) * 4 * 2 + nlay * n_lines * 4 * 64)
+    return int(max(1, min(1024, budget_bytes // per)))
+
+
+def _lsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Layer sum in a fixed sequential order (elementwise adds round
+    exactly, so the result does not depend on shapes or devices)."""
+    xm = x.movedim(dim, 0)
+    out = torch.zeros_like(xm[0])
+    for xl in xm:
+        out = out + xl
+    return out
+
+
+# the line-sum kernel plan's tiles, lines and wavenumbers (the JAX
+# package's pallas_line_tile / pallas_wn_tile, not the 4096-line tiles of
+# its dense engine); the catalog is packed to the same line tile
+LINE_TILE, WN_TILE = 256, 128
+
+
+def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
+        fileout="MONORTM.OUT", outdir=".", *, device="cuda",
+        dtype: torch.dtype = torch.float32, netcdf: bool = False,
+        profile_dir=None, workers=None) -> RunResult:
+    """Run the full MONORTM.IN -> MONORTM.OUT pipeline on one device.
+
+    device: "cuda" (the default; raises without a card) or "cpu", where
+    the line sums take their plain PyTorch versions.  workers: host
+    processes for IATM=1 layering
+    (atmos.tape5_atm.profiles_from_tape5_iter).  profile_dir: write a
+    torch.profiler trace there.
+    """
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            "only float32 runs are ported to monortm_tpu_torch; float64 "
+            "needs the dense line_od_block engine, which is not ported yet")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("run(device='cuda') needs a CUDA device; pass "
+                           "device='cpu' to run on the CPU")
+    filein = Path(filein)
+    Path(outdir).mkdir(parents=True, exist_ok=True)
+    timer = StageTimer()
+    with timer.stage("tape5-parse"):
+        iatm, ixsect, nprof = count_profiles(filein, fileprof)
+        if ixsect >= 1:
+            raise NotImplementedError(
+                "IXSECT >= 1: cross-sections (ops/xsec.py, od_xsec) are not "
+                "ported to monortm_tpu_torch yet")
+        rd = Tape5Reader(filein)
+        cfg = rd.read_block()
+    wn = cfg.wn
+    if cfg.nwn == 0:
+        raise ValueError("no wavenumbers configured")
+
+    with timer.stage("line-catalog"):
+        catalog = load_catalog(hfile, float(wn[0]), float(wn[-1]),
+                               tile=LINE_TILE)
+
+    # boundary spectra (EMISS_REFLEC, monortm_sub.F90:506-516)
+    ed = filein.parent / "in"
+    emis = emis_io.boundary_spectrum(
+        wn, cfg.bndemi, ed / "EMISSION" if cfg.bndemi[0] < 0 else None)
+    refl = emis_io.boundary_spectrum(
+        wn, cfg.bndrfl, ed / "REFLECTION" if cfg.bndrfl[0] < 0 else None)
+
+    # profiles: IATM=0 parses the layer file (fast); IATM=1 streams the
+    # LBLATM-equivalent layering out of the producer (a worker pool when
+    # there are many profiles) so the device starts on early profiles
+    # while later ones are still being layered
+    profiles = None
+    if iatm == 0:
+        with timer.stage("profiles+layering"):
+            profiles = read_profiles(fileprof)
+
+    # TAPE7 (IPUNCH=1 on record 3.1, lblatm.f90:1264-1340): the layering
+    # output in MONORTM_PROF.IN-compatible form, collected by the
+    # producer and written before the last device work
+    punched: list = []
+
+    model_cache: dict[int, MonoRTM] = {}
+    out = RunResult(wn=wn, tb=[], rad=[], results=[])
+    writer = OutputWriter(Path(outdir) / fileout)
+
+    # MONORTM.LOG (unit IPR=66 in the reference, monortm.f90:322-325):
+    # control-record echo, line-file stats, per-profile notes
+    log = open(Path(outdir) / "MONORTM.LOG", "w")
+    log.write(" HIRAC    CNTNM    EMISS     PLOT     IATM      IOD"
+              "    XSECT     ISPD     IBRD\n")
+    log.write(f"{cfg.ihirac:5d}{cfg.icntnm:9d}{cfg.iemit:9d}"
+              f"{cfg.iplot:9d}{cfg.iatm:9d}{cfg.iod:9d}{cfg.ixsect:9d}"
+              f"{cfg.ispd:9d}{cfg.ibrd:9d}\n")
+    log.write(f"0 TBOUND   = {cfg.tbound:12.4f}     BOUNDARY EMISSIVITY"
+              f"   = {cfg.bndemi[0]:11.3E}{cfg.bndemi[1]:11.3E}"
+              f"{cfg.bndemi[2]:11.3E}\n")
+    # CHECKINPUTS-style echoes (monortm_sub.F90:163-253)
+    for w in cfg.warnings:
+        print("----------------------------------------")
+        print(w)
+        log.write(f" {w}\n")
+    # PRCNTM-equivalent continuum info (contnm.f90:1170)
+    f = cfg.factors
+    log.write(" MT_CKD 3.5 CONTINUUM (ICNTNM={:d}): XSELF={:.3f} "
+              "XFRGN={:.3f} XCO2C={:.3f} XO3CN={:.3f} XO2CN={:.3f} "
+              "XN2CN={:.3f} XRAYL={:.3f}\n".format(
+                  cfg.icntnm, f.xself, f.xfrgn, f.xco2c, f.xo3cn,
+                  f.xo2cn, f.xn2cn, f.xrayl))
+    log.write("   LINE FILE INFORMATION\n")
+    mol_counts = collections.Counter(
+        int(m) for m, v in zip(catalog.mol, catalog.valid) if v)
+    for m in sorted(mol_counts):
+        log.write(f"    {HMOLC[m-1]:>6s} = {mol_counts[m]:6d}\n")
+    log.write(f"0 TOTAL NUMBER OF LINES ={catalog.n_lines:8d}\n")
+
+    # ---- host prep per profile (scaling, columns, cloud file) ----------
+    cld_file = filein.parent / "in_lblrtm_cld"
+    prepped: list = []
+
+    def prep_profile(npr0, prof):
+        """Per-profile host prep (LOG tables, scaling, columns) — the
+        reference's per-profile preamble (monortm.f90:369-551).  Called
+        by the producer in input order."""
+        st, meta = prof.state, prof.meta
+        wkl = st.wkl
+        log.write(f"1 PROFILE {npr0}\n")
+        if getattr(prof, "path", None):
+            # LBLATM path summary (lblatm.f90:1243-1244, format 968)
+            pa = prof.path
+            log.write(
+                f" PATH: MODEL={prof.hmod or '(user)':24s} "
+                f"H1={meta.h1:10.3f} H2={meta.h2:10.3f} "
+                f"ANGLE={meta.angle:10.3f} RANGE={pa['range']:10.3f} "
+                f"BETA={pa['beta']:10.3f} PHI={pa['phi']:10.3f} "
+                f"HMIN={pa['hmin']:10.3f} BENDING={pa['bendng']:10.5f} "
+                f"LEN={pa['len']:d} "
+                f"AIRTOT={pa['airtot']:11.4E}\n")
+        _log_layer_table(log, st.p, st.t, wkl, st.wbrodl, meta.nmol)
+        if cfg.nmol_scal > 0:
+            wkl = profil_scal(wkl, st.wbrodl, meta.nmol,
+                              cfg.hmol_scal, cfg.xmol_scal,
+                              cfg.nmol_scal)
+            log.write(" PROFILE SCALING (profil_scal_sub): HMOL_SCAL="
+                      f"{cfg.hmol_scal[:cfg.nmol_scal]!r} XMOL_SCAL="
+                      + " ".join(f"{x:.5E}" for x in
+                                 cfg.xmol_scal[:cfg.nmol_scal]) + "\n")
+            _log_layer_table(log, st.p, st.t, wkl, st.wbrodl, meta.nmol)
+        pwv, clw_col = integr(wkl, st.clw)
+
+        # optional TES cloud OD file (see io/cldod.py), added to the
+        # total on the device as the JAX package adds it (od_xsec)
+        od_xsec = None
+        if cld_file.exists():
+            od_xsec = cloud_od_on_grid(cld_file, wn, st.t.shape[-1])
+
+        irt = irt_from_angle(meta.angle)
+        tbound = cfg.tbound
+        if tbound < 0.0:       # FPACK: use TZ(0) (lblatm.f90:5952)
+            tbound = float(np.asarray(st.tz)[0])
+        return dict(st=st, meta=meta, wkl=wkl, pwv=pwv,
+                    clw_col=clw_col, od_xsec=od_xsec,
+                    irt=irt, tbound=tbound)
+
+    npdt = np.float32
+    results: dict[int, Any] = {}
+    keep_layers = cfg.iod == 1 or netcdf
+    host_bytes = [0]
+    # the chunk cap's budget, read on this (the consumer's) thread
+    budget = _device_budget_bytes(device)
+    n_cat = len(catalog.mol)
+
+    def pull(x):
+        """Device -> host with transfer-byte accounting (the LOG line
+        proves the default path never hauls a per-layer array)."""
+        if x is None:
+            return None
+        a = x.cpu().numpy()
+        host_bytes[0] += a.nbytes
+        return a
+
+    def ensure_model(nmol):
+        """Build (once, on the consumer thread) the model of an nmol
+        group."""
+        if nmol not in model_cache:
+            with timer.stage("model-build"):
+                model_cache[nmol] = MonoRTM(
+                    wn, cfg.dvset, catalog, nmol=nmol,
+                    factors=cfg.factors,
+                    line_cfg=LineConfig(ibrd=cfg.ibrd), device=device,
+                    dtype=dtype, wn_tile=WN_TILE, line_tile=LINE_TILE)
+        return model_cache[nmol]
+
+    def produce():
+        """The producer: profiles (possibly streaming out of the
+        layering worker pool) -> per-profile prep -> same-shape chunk
+        buffers (one [B, nlay] forward per chunk; the reference runs
+        profile by profile, monortm.f90:357) -> host-stacked work items,
+        yielded in deterministic order.  Host work only."""
+        buffers: dict[tuple, list[int]] = {}
+        bmax_of: dict[tuple, int] = {}
+
+        def emit(key):
+            nlay, irt_, nmol, has_x = key
+            return host_prep(dict(nlay=nlay, irt=irt_, nmol=nmol,
+                                  has_x=has_x, chunk=buffers.pop(key)))
+
+        if profiles is not None:
+            src = iter(profiles)
+        else:
+            src = profiles_from_tape5_iter(filein, cfg, workers=workers)
+        npr0 = 0
+        while True:
+            if profiles is None:
+                with timer.stage("profiles+layering"):
+                    prof = next(src, None)
+            else:
+                prof = next(src, None)
+            if prof is None:
+                break
+            npr0 += 1
+            with timer.stage("host-prep"):
+                pr = prep_profile(npr0, prof)
+            prepped.append(pr)
+            if getattr(prof, "ipunch", 0) == 1:
+                punched.append(prof)
+            key = (pr["st"].t.shape[-1], pr["irt"], pr["meta"].nmol,
+                   pr["od_xsec"] is not None)
+            buffers.setdefault(key, []).append(len(prepped) - 1)
+            if key not in bmax_of:
+                bmax_of[key] = _max_batch(len(wn), key[0], key[2], n_cat,
+                                          budget)
+            if len(buffers[key]) >= bmax_of[key]:
+                yield emit(key)
+        # layering is complete here: write the TAPE7 checkpoint artifact
+        # BEFORE the remaining device work so a mid-compute failure
+        # cannot lose the layering output (the reference writes it from
+        # LBLATM, lblatm.f90:1264-1340)
+        if punched:
+            write_tape7(Path(outdir) / "TAPE7", punched, xid=cfg.xid)
+        for key in list(buffers):         # flush partial buffers
+            yield emit(key)
+
+    def host_prep(item):
+        """Stack the chunk's host arrays in the compute dtype (numpy, on
+        the producer thread, while the device runs the previous chunk)."""
+        prs = [prepped[i] for i in item["chunk"]]
+        with timer.stage("host-stack"):
+            nstack = lambda f: np.stack([f(p) for p in prs]).astype(npdt)
+            item["host"] = HostState(
+                p=nstack(lambda p: p["st"].p), t=nstack(lambda p: p["st"].t),
+                tz=nstack(lambda p: p["st"].tz), wkl=nstack(lambda p: p["wkl"]),
+                wbrodl=nstack(lambda p: p["st"].wbrodl),
+                clw=nstack(lambda p: p["st"].clw))
+            item["tsfc"] = nstack(lambda p: np.asarray([p["tbound"]]))
+            if item["has_x"]:
+                item["ox"] = nstack(lambda p: p["od_xsec"])
+        return item
+
+    def dispatch(item):
+        """Upload the chunk, choose its engines and enqueue its device
+        work; the synchronous pull happens in finalize() after the next
+        chunk has been dispatched."""
+        model = ensure_model(item["nmol"])
+        with timer.stage("host->device"):
+            state = state_from_numpy(item.pop("host"), device, dtype)
+            ox = item.pop("ox", None)
+            if ox is not None:
+                ox = torch.as_tensor(ox, device=device)
+        # the per-layer zeta > 0.99 predicate on the model's device at
+        # margin 0; its verdict (one bool per layer) is a host sync
+        with timer.stage("engine-predicate"):
+            engine, lor = model.engine_split(state)
+        out.engines.append((len(item["chunk"]), engine,
+                            item["nlay"] if engine == "lorentz" else len(lor)))
+        with timer.stage("device-dispatch"), torch.no_grad():
+            od = model.od_model(state, engine=engine, lor_layers=lor,
+                                od_xsec=ox)
+            # layer reductions on the device: the [B, W, M, L] array
+            # stays there and only the [B, W, M] sums cross to the host
+            # unless IOD=1 / NetCDF asks for per-layer arrays
+            red = dict(otot=_lsum(od.od_total), by_mol=_lsum(od.od_by_mol),
+                       oc={k: _lsum(v, -2) for k, v in od.oc.items()})
+            if od.od_xsec is not None:
+                red["odx"] = _lsum(od.od_xsec, -2)
+            parts = rt_parts(od.od_total, state.t[..., None, :],
+                             state.tz[..., None, :], model.od_model.wn_t)
+        item.update(parts=parts, red=red,
+                    odt=od.od_total if keep_layers else None,
+                    odfull=od if netcdf else None)
+        return item
+
+    def finalize(item):
+        """Synchronous device->host pull, the O(W) numpy boundary
+        combine and result storage."""
+        with timer.stage("device->host"):
+            parts_h = RTParts(*(pull(v) for v in item["parts"]))
+            red_h = {k: ({s: pull(a) for s, a in v.items()}
+                         if isinstance(v, dict) else pull(v))
+                     for k, v in item["red"].items()}
+            odt_h = pull(item["odt"])
+            od = item["odfull"]
+            od_h = None if od is None else ODResult(
+                od_total=pull(od.od_total), od_by_mol=pull(od.od_by_mol),
+                oc={k: pull(v) for k, v in od.oc.items()},
+                od_clw=pull(od.od_clw), od_xsec=pull(od.od_xsec))
+        rad_h, tb_h, tmr_h = combine_boundary_np(
+            wn, parts_h.rup, parts_h.rdn, parts_h.trtot,
+            parts_h.radtmr, item["tsfc"], emis, refl, item["irt"],
+            dtype=npdt)
+        full_h = None
+        if od_h is not None:
+            full_h = ForwardResult(
+                rt=RTResult(rad=rad_h, tb=tb_h, rup=parts_h.rup,
+                            rdn=parts_h.rdn, trtot=parts_h.trtot,
+                            tmr=tmr_h),
+                od=od_h, emis=emis, refl=refl)
+        for bi, i in enumerate(item["chunk"]):
+            results[i] = ProfileOutput(
+                tb=tb_h[bi], tmr=tmr_h[bi], rad=rad_h[bi],
+                trtot=parts_h.trtot[bi], rup=parts_h.rup[bi],
+                rdn=parts_h.rdn[bi], emis=emis, refl=refl,
+                otot=red_h["otot"][bi],
+                by_mol=red_h["by_mol"][bi],
+                oc={k: v[bi] for k, v in red_h["oc"].items()},
+                odx=(red_h["odx"][bi] if "odx" in red_h else None),
+                od_layers=(odt_h[bi] if odt_h is not None else None),
+                full=(_slice_result(full_h, bi)
+                      if full_h is not None else None))
+
+    # ---- software pipeline over chunks: the producer thread layers and
+    # preps chunk N+1 while the device runs chunk N, and the synchronous
+    # pull of chunk N happens only after chunk N+1 has been dispatched
+    with profile_trace(profile_dir):
+        q: Any = queue.Queue(maxsize=2)
+        stop = threading.Event()
+
+        def _put(x):
+            """Bounded put that gives up if the consumer died."""
+            while not stop.is_set():
+                try:
+                    q.put(x, timeout=1.0)
+                    return
+                except queue.Full:
+                    continue
+
+        def feeder():
+            try:
+                for it in produce():
+                    _put(it)
+                    if stop.is_set():
+                        return
+                _put(("done", None))
+            except BaseException as e:    # re-raised in the consumer
+                _put(("err", e))
+
+        th = threading.Thread(target=feeder, daemon=True)
+        th.start()
+        try:
+            pending = None
+            while True:
+                nxt = q.get()
+                if isinstance(nxt, tuple):
+                    if nxt[0] == "err":
+                        raise nxt[1]
+                    break
+                dev = dispatch(nxt)
+                if pending is not None:
+                    finalize(pending)
+                pending = dev
+            if pending is not None:
+                finalize(pending)
+        finally:
+            # unblock and retire the producer even when dispatch or
+            # finalize raised
+            stop.set()
+            th.join(timeout=30.0)
+
+    results = [results[i] for i in range(len(prepped))]
+
+    # ---- write outputs in input order --------------------------------
+    with writer:
+        for i, (pr, res) in enumerate(zip(prepped, results)):
+            npr = i + 1
+            st, meta = pr["st"], pr["meta"]
+            with timer.stage("output"):
+                writer.write_profile(npr, wn, res, st, meta, pr["pwv"],
+                                     pr["clw_col"], pr["tbound"],
+                                     meta.angle)
+            if cfg.iod == 1:
+                writer.write_layer_ods(npr, wn, res.od_layers, outdir)
+            if netcdf:  # USENETCDF (monortm_sub.F90:698-778)
+                write_netcdf(Path(outdir) / f"MONORTM.{npr:05d}.nc", npr,
+                             wn, res.full, st, meta, pr["pwv"],
+                             pr["clw_col"], pr["tbound"], meta.angle)
+
+            out.tb.append(np.asarray(res.tb))
+            out.rad.append(np.asarray(res.rad))
+            out.results.append(res)
+            log.write(f"PROFILE {npr:5d}: NLAYRS={st.t.shape[-1]:4d} "
+                      f"ANGLE={meta.angle:8.3f} IRT={pr['irt']} "
+                      f"PWV={pr['pwv']:8.4f} CLW={pr['clw_col']:8.4f}\n")
+            print(f"PROCESSING PROFILE NUMBER: {npr:5d}")
+    # version-stamp tail (monortm.f90:591-619, format 1000): same layout,
+    # the port's module identities in the A15 fields
+    try:
+        hvrspec = read_tape3_header(hfile)[:15]
+    except (OSError, EOFError):
+        hvrspec = "(no TAPE3 hdr)"
+    _v = __version__
+    a15 = lambda s: f"{s[:15]:<15s}"
+    log.write("\n--------------------------------------\n")
+    log.write("Modules and versions used in this calculation:\n\n")
+    log.write(a15("Release  5.6") + "\n\n")
+    log.write(f"     spectral file :     {a15(hvrspec)}\n")
+    log.write(f"     monortm.f     :     {a15('pipeline ' + _v)}          "
+              f"modm.f           :      {a15('models.od ' + _v)}\n")
+    log.write(f"     monortm_sub.f :     {a15('io.output ' + _v)}          "
+              f"lblatm_monortm.f :      {a15('atmos ' + _v)}\n")
+    log.write(f"     package       :     monortm_tpu_torch {_v} (torch "
+              f"{torch.__version__}, {device})\n")
+    log.write(f" HOST PULL: {host_bytes[0]} bytes device->host "
+              f"(per-layer arrays pulled: {keep_layers})\n")
+    for n, engine, n_lor in out.engines:
+        log.write(f" ENGINE SPLIT: {n} profile(s): {engine}, {n_lor} "
+                  f"all-Lorentz layer(s)\n")
+    log.write(timer.report())
+    log.close()
+    return out
+

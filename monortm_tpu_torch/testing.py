@@ -1,9 +1,9 @@
 """Synthetic fixtures for tests, the chip smoke run and benchmarks.
 
-Copies of `monortm_tpu.testing.synthetic_catalog_mw` and
-`synthetic_state` on the port's own catalog packer: the same numpy code,
-drawn from the same `default_rng(seed)` in the same order, so both
-packages see identical inputs.
+Copies of `monortm_tpu.testing.synthetic_catalog_mw`, `synthetic_state`
+and `make_minimal_rundir` on the port's own catalog packer and TAPE3
+writer: the same numpy code, drawn from the same `default_rng(seed)` in
+the same order, so both packages see identical inputs.
 """
 
 from __future__ import annotations
@@ -73,6 +73,48 @@ def synthetic_catalog_mw(n_h2o: int = 64, n_o2: int = 48, seed: int = 0,
     if raw_lines:
         return raw
     return pack(resolve(group(raw)), tile=tile)
+
+
+# minimal IATM=0 run inputs for pipeline-level tests (a copy of the JAX
+# package's): 4 explicit wavenumbers (V1<0 list option), NMOL=7, downwelling
+_MIN_TAPE5 = """\
+* synthetic minimal case (IATM=0, explicit wn list)
+$ Rundeck test
+    1         1    0    1    0         0    0    0    0    0         0
+-0.200E+00 8.800E+00 0.000E+00 0.100E-00 0.000E+00 0.000E+00 0.000E+00 0.000E+00    0      0.000E+00    0
+4
+0.789344
+0.79828
+1.043027
+1.051763
+     0.    1.0       0.000E+00 0.000E+00 0.000E+00 0.000E+00 0.000E+00
+%%%%
+"""
+
+_MIN_PROF_REC = """\
+ 1  2    7  1.000000TEST    ATM          0.00        20.00         0.000      0
+{p0:15.7E}{t0:10.2f}              3   0.000 1013.00 288.20  0.700  931.64 283.65  0.030
+{w0:15.7E}  5.6517653E+20  4.7120675E+16  5.4804989E+17  2.5390745E+17  2.9115142E+18  3.5794498E+23  1.3375841E+24
+  8.9382500E+02    281.40              3                         1.400 855.746 279.10  0.000
+  9.5935612E+21  5.2824106E+20  4.7150147E+16  5.1223340E+17  2.3170005E+17  2.7212402E+18  3.3455267E+23  1.2501701E+24
+"""
+
+
+def make_minimal_rundir(dirpath, nprof: int = 1) -> None:
+    """Write MONORTM.IN + MONORTM_PROF.IN + synthetic TAPE3 into dirpath
+    (a case-4-style IATM=0 run with `nprof` slightly-perturbed profiles)."""
+    from pathlib import Path
+    from monortm_tpu_torch.io.tape3 import write_tape3
+
+    d = Path(dirpath)
+    (d / "MONORTM.IN").write_text(_MIN_TAPE5)
+    recs = [_MIN_PROF_REC.format(p0=972.2109 * (1 + 0.002 * i),
+                                 t0=285.94 + 0.5 * i,
+                                 w0=1.2207059e22 * (1 + 0.01 * i))
+            for i in range(nprof)]
+    (d / "MONORTM_PROF.IN").write_text("".join(recs))
+    raw = synthetic_catalog_mw(raw_lines=True)
+    write_tape3(d / "TAPE3", raw)
 
 
 def synthetic_state(nlay: int = 26, batch: int | None = None,

@@ -1,15 +1,20 @@
 """Guards on the port's boundaries.
 
 - `monortm_tpu_torch` runs its forward pass and a backward pass through
-  it without importing jax or any module of the JAX package `monortm_tpu`
-  (the machine with the GPU has no JAX, and the port keeps its own copies
-  of the host modules it needs);
+  it, and its CLI (run as `__main__`) through the pipeline on an IATM=0
+  and an IATM=1 rundir, without importing jax or any module of the JAX
+  package `monortm_tpu` (the machine with the GPU has no JAX, and the
+  port keeps its own copies of the host modules it needs);
+- the pipeline's modules hold no import of either, read from their
+  source;
+- the CLI on its default device fails where there is no GPU;
 - `chip_smoke.py` fails, and prints no result, where there is no GPU;
 - importing the kernel module needs neither nvcc nor triton.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -88,3 +93,73 @@ def test_kernel_module_imports_without_toolchain():
                         CUDA_HOME="/nonexistent"))
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+# the CLI run as __main__ (IATM=0 rundir, then an IATM=1 one), then the
+# modules the process loaded
+CLI_MAIN = """
+import runpy, sys
+from pathlib import Path
+from monortm_tpu_torch.testing import make_minimal_rundir
+d = Path(sys.argv[1])
+make_minimal_rundir(d, nprof=2)
+(d / "i1").mkdir()
+(d / "i1" / "MONORTM.IN").write_text(sys.argv[2])
+for rd in (d, d / "i1"):
+    sys.argv = ["monortm-tpu-torch", "--in", str(rd / "MONORTM.IN"),
+                "--prof", str(d / "MONORTM_PROF.IN"), "--tape3",
+                str(d / "TAPE3"), "--outdir", str(rd / "out"),
+                "--device", "cpu", "--netcdf"]
+    try:
+        runpy.run_module("monortm_tpu_torch.cli", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+    assert (rd / "out" / "MONORTM.OUT").stat().st_size > 0
+assert (d / "i1" / "out" / "TAPE7").exists()
+print(sorted(k for k in sys.modules
+             if k.startswith("jax") or k.split(".")[0] == "monortm_tpu"))
+"""
+
+PIPELINE_MODULES = (
+    "pipeline.py", "cli.py", "types.py", "lines.py", "testing.py",
+    "io/tape3.py", "io/tape5.py", "io/profin.py", "io/emis.py",
+    "io/cldod.py", "io/tape7.py", "io/fscdxs.py", "io/output.py",
+    "atmos/layering.py", "atmos/tape5_atm.py", "utils/trace.py",
+    "utils/__init__.py", "models/rt.py", "models/od.py",
+    "ops/continuum.py")
+
+
+def test_cli_as_main_never_imports_jax(tmp_path):
+    from tests.test_torch_io import iatm1_tape5
+    res = _run(["-c", CLI_MAIN, str(tmp_path), iatm1_tape5()],
+               env=_env(OMP_NUM_THREADS="1"))
+    assert res.returncode == 0, res.stderr
+    assert "PROCESSING PROFILE NUMBER" in res.stdout
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+
+
+def test_pipeline_sources_never_import_jax():
+    pkg = ROOT / "monortm_tpu_torch"
+    bad = re.compile(r"^\s*(from|import)\s+(jax|monortm_tpu)(\.|\s|$)",
+                     re.M)
+    for name in PIPELINE_MODULES:
+        text = (pkg / name).read_text()
+        assert not bad.search(text), name
+        assert "monortm_tpu.native" not in text.replace(
+            "monortm_tpu_torch", ""), name
+
+
+def test_cli_default_device_fails_without_a_gpu(tmp_path):
+    """`python -m monortm_tpu_torch.cli` asks for the card by default:
+    with none visible it raises and writes no MONORTM.OUT."""
+    make = ("from monortm_tpu_torch.testing import make_minimal_rundir; "
+            f"make_minimal_rundir({str(tmp_path)!r})")
+    assert _run(["-c", make]).returncode == 0
+    res = _run(["-m", "monortm_tpu_torch.cli", "--in",
+                str(tmp_path / "MONORTM.IN"), "--prof",
+                str(tmp_path / "MONORTM_PROF.IN"), "--tape3",
+                str(tmp_path / "TAPE3"), "--outdir", str(tmp_path / "out")],
+               env=_env(CUDA_VISIBLE_DEVICES=""))
+    assert res.returncode != 0
+    assert "CUDA" in res.stderr
+    assert not (tmp_path / "out" / "MONORTM.OUT").exists()
