@@ -35,11 +35,32 @@ on the GPU):
     written as TAPE7), run once to warm and then 3 times each with the
     chunk cap forced to 64 and to 8 profiles; wall seconds, profiles/s,
     the stage report and each forward kernel's launches; every Tb finite,
-    MONORTM.OUT byte-identical between two runs, profile 1's Tb and total
-    OD against the port's CPU pipeline on a 1-profile copy, and a small
-    IATM=1 rundir (US standard, 0-30 km) on the card to finite Tb.
+    MONORTM.OUT byte-identical between two runs and between the caps
+    (when every profile's layers took the same engine at both; the engine
+    split of each chunk is printed), profile 1 at every device stage
+    bitwise the same in a chunk of 64 and of 8 (`batch_stages`; the two
+    forward instantiations on the all-Lorentz layers are compared and
+    printed, not required equal), profile 1's Tb and total OD against the
+    port's CPU pipeline on a 1-profile copy, and a small IATM=1 rundir (US
+    standard, 0-30 km) on the card to finite Tb;
+  9 float64 at full width through the dense engine: phase 8's rundir cut
+    to its first 8 profiles, `run(dtype=torch.float64)` twice at a cap of
+    8 and once at 2, MONORTM.OUT byte-identical across the three, no
+    line-sum kernel launched, wall seconds, profiles/s, peak memory and
+    the dense block's shape; profile 1 against the port's CPU float64
+    pipeline on every 32nd wavenumber (Tb within 1e-9 K, total OD at rtol
+    1e-10, atol 1e-14); the float32 dense engine writes the same bytes
+    with `torch.backends.cuda.matmul.allow_tf32` on and off;
+  10 an infrared-to-UV grid (three wavenumbers inside each activation
+    range of the twelve sub-continua a microwave grid leaves off, and
+    Rayleigh above 820 cm^-1) through the default float32 kernels and the
+    hybrid split: both forward kernels launch, od_total, every continuum
+    species and Tb agree with the CPU path at the forward tolerance, and
+    no sub-continuum's OD is all zero on its band.
 
 Run from the repository root:  python3 chip_smoke.py
+(`python3 chip_smoke.py --batch-stages` builds the kernels and runs only
+phase 8's stage-by-stage chunk comparison.)
 Exits non-zero (and prints no result line) without a CUDA device or when
 any phase fails; a phase prints all of its comparisons before it fails.
 The line before the last two lists each kernel with its launches on the
@@ -154,6 +175,28 @@ PEAK_BYTES = 3.35e12
 # 3.1-3.3 layer the US standard atmosphere from 0 to 30 km, looking up
 # from the ground (tests/test_atmos.py CASE1_REST)
 PIPE_NPROF, PIPE_CAPS, PIPE_REPS = 64, (64, 8), 3
+# phase 9: float64 on phase 8's rundir cut to its first profiles; profile
+# 1 against the CPU on every F64_CPU_WN_STEP-th wavenumber, at the e2e
+# oracle's float64 budgets (tests/test_e2e_oracle.py:27-28)
+F64_NPROF, F64_CAPS, F64_CPU_WN_STEP = 8, (8, 2), 32
+F64_TB_ATOL, F64_OD_RTOL, F64_OD_ATOL = 1e-9, 1e-10, 1e-14
+# phase 10: sub-continuum -> (species, a wavenumber range inside its
+# activation test), three points each
+IR_BANDS = {
+    "o3_chap": ("o3", 9000.0, 24000.0),
+    "o3_hh": ("o3", 27500.0, 40700.0),
+    "o3_uv": ("o3", 40900.0, 53900.0),
+    "o2_fund": ("o2", 1400.0, 1800.0),
+    "o2_inf1": ("o2", 7600.0, 8400.0),
+    "o2_inf2": ("o2", 9200.0, 10900.0),
+    "o2_aband": ("o2", 13000.0, 13200.0),
+    "o2_vis": ("o2", 15100.0, 29800.0),
+    "o2_herz": ("o2", 36100.0, 40000.0),
+    "o2_fuv": ("o2", 56800.0, 60000.0),
+    "n2_fund": ("n2", 2050.0, 2850.0),
+    "n2_overtone": ("n2", 4400.0, 4900.0),
+    "rayleigh": ("rayleigh", 830.0, 900.0),
+}
 REC12 = ("    1         1         1              1         {iatm}"
          "              0    0")
 REC14 = ("     0.    1.0       0.000E+00 0.000E+00 0.000E+00 0.000E+00 "
@@ -305,11 +348,12 @@ def line_bytes(args, direction, voigt):
     return inputs + sf + per_ln * L * n * 4
 
 
-def write_rundir(d: Path, raw, keep: int) -> None:
+def write_rundir(d: Path, raw, keep: int, wn_step: int = 1) -> None:
     """TAPE3 (the lines `raw`), MONORTM.IN and MONORTM_PROF.IN of phase 8,
     written with the port's writers; MONORTM_PROF.IN holds the first
     `keep` profiles of synthetic_state(nlay=NLAY, batch=PIPE_NPROF),
-    written as TAPE7 (levels from 1013 to 45 hPa, looking up)."""
+    written as TAPE7 (levels from 1013 to 45 hPa, looking up); MONORTM.IN
+    lists every `wn_step`-th of the NWN wavenumbers."""
     from monortm_tpu_torch.io.profin import Profile
     from monortm_tpu_torch.io.tape3 import write_tape3
     from monortm_tpu_torch.io.tape7 import write_tape7
@@ -318,9 +362,9 @@ def write_rundir(d: Path, raw, keep: int) -> None:
 
     d.mkdir(parents=True, exist_ok=True)
     write_tape3(d / "TAPE3", raw)
-    wn = np.linspace(0.3, 55.0, NWN)
+    wn = np.linspace(0.3, 55.0, NWN)[::wn_step]
     (d / "MONORTM.IN").write_text(IATM0_TAPE5.format(
-        nwn=NWN, wn="".join(f"{w:19.13f}\n" for w in wn)))
+        nwn=len(wn), wn="".join(f"{w:19.13f}\n" for w in wn)))
     st = synthetic_state(nlay=NLAY, batch=PIPE_NPROF, device="cpu",
                          dtype=torch.float64)
     pz = np.geomspace(1013.0, 45.0, NLAY + 1)
@@ -333,9 +377,115 @@ def write_rundir(d: Path, raw, keep: int) -> None:
     write_tape7(d / "MONORTM_PROF.IN", profs, xid="chip smoke")
 
 
+def rundir_files(d: Path) -> dict:
+    return dict(filein=d / "MONORTM.IN", fileprof=d / "MONORTM_PROF.IN",
+                hfile=d / "TAPE3")
+
+
+def drive(files, outdir, cap=None, **kw):
+    """One `pipeline.run` on the card with stdout kept and the chunk cap
+    forced to `cap` profiles (None: the memory cap); returns (result,
+    wall s, stdout)."""
+    from monortm_tpu_torch import pipeline
+    best_max_batch = pipeline._max_batch
+    pipeline._max_batch = (best_max_batch if cap is None
+                           else lambda *a, **k: cap)
+    buf = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = pipeline.run(**{**files, **kw}, outdir=outdir,
+                               device="cuda")
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, buf.getvalue()
+    finally:
+        pipeline._max_batch = best_max_batch
+
+
+def stage_report(outdir: Path) -> str:
+    """MONORTM.LOG's HOST PULL, ENGINE SPLIT and STAGE TIMING lines."""
+    text = (outdir / "MONORTM.LOG").read_text()
+    return text[text.index(" HOST PULL"):].rstrip()
+
+
+def split_of(res) -> list:
+    """Each profile's (engine, the layers the all-Lorentz kernel took) in
+    a pipeline run, in input order."""
+    return [(e, lor) for n, e, lor in res.engines for _ in range(n)]
+
+
+def batch_stages(model, state, n_small: int) -> list:
+    """Profile 1 at each device stage of a pipeline chunk, computed in a
+    chunk of all of `state`'s profiles and in one of its first `n_small`:
+    [(stage, bitwise equal, max abs difference)] in the pipeline's order.
+    The engine split is each chunk's own, as the pipeline takes it; the
+    line OD of each engine is also compared over every layer."""
+    from monortm_tpu_torch.models.rt import rad_up_dn
+    from monortm_tpu_torch.ops.lineshape import line_params
+    from monortm_tpu_torch.pipeline import _lsum
+    from monortm_tpu_torch.types import LayerState
+    od = model.od_model
+
+    def stages(st):
+        out = {}
+        with torch.no_grad():
+            scor = od.tips.scor(st.t)
+            sf = scor.reshape(scor.shape[:-2] + (39 * 9,))
+            out["TIPS scor"] = scor
+            lp = line_params(od.dev_cat, st.p, st.t, st.wkl, st.wbrodl, sf,
+                             od.line_cfg)
+            out.update({f"prologue {k}": v for k, v in lp.items()})
+            split = od.engine_split(st)
+            for e in ("full", "lorentz"):
+                out[f"line OD, {e} engine, every layer"] = od.line_od(
+                    st, sf, engine=e)
+            res = od(st, engine=split[0], lor_layers=split[1])
+            out["line OD by molecule (split)"] = res.od_by_mol
+            out.update({f"continuum {k}": v for k, v in res.oc.items()})
+            out["cloud OD"] = res.od_clw
+            out["total OD"] = res.od_total
+            out["layer sum of total OD"] = _lsum(res.od_total)
+            out["layer sum by molecule"] = _lsum(res.od_by_mol)
+            rup, rdn, trtot, sumexp_dn, odtot = rad_up_dn(
+                res.od_total, st.t[..., None, :], st.tz[..., None, :],
+                od.wn_t)
+            out.update({"RT odtot": odtot, "RT sumexp_dn": sumexp_dn,
+                        "RT rup": rup, "RT rdn": rdn, "RT trtot": trtot})
+        return split, out
+
+    small = LayerState(**{f: getattr(state, f)[:n_small] for f in FIELDS})
+    split_b, big = stages(state)
+    split_s, sml = stages(small)
+    rows = [(f"engine split {split_b[0]} {list(split_b[1])} vs "
+             f"{split_s[0]} {list(split_s[1])}", split_b == split_s, 0.0)]
+    for k, v in big.items():
+        a, b = v[0], sml[k][0]
+        rows.append((k, bool(torch.equal(a, b)),
+                     float((a.double() - b.double()).abs().max())))
+    return rows
+
+
+def engines_agree(model, state) -> tuple:
+    """(layers where every line is in the Lorentz regime, whether the two
+    forward instantiations give bitwise-equal sums there, max abs
+    difference) over `state`'s profiles."""
+    od = model.od_model
+    with torch.no_grad():
+        _, lor = od.engine_split(state)
+        if not lor:
+            return (), True, 0.0
+        ix = torch.as_tensor(lor, device=state.p.device)
+        scor = od.tips.scor(state.t)
+        sf = scor.reshape(scor.shape[:-2] + (39 * 9,))
+        a, b = (od.line_od(state, sf, engine=e).index_select(-3, ix)
+                for e in ("full", "lorentz"))
+    return lor, bool(torch.equal(a, b)), float((a - b).abs().max())
+
+
 def phase8_pipeline(tmp: Path, kernels, reset_counts) -> dict:
     """Phase 8 (see the module docstring); returns each forward kernel's
-    launches in the first timed run at the cap of 64."""
+    launches in the first timed run at the cap of 64, and the lines."""
     from monortm_tpu_torch import pipeline
     from monortm_tpu_torch.io.tape3 import RawLines
     from monortm_tpu_torch.testing import synthetic_catalog_mw
@@ -351,32 +501,9 @@ def phase8_pipeline(tmp: Path, kernels, reset_counts) -> dict:
                       for f in RawLines.__dataclass_fields__})
     write_rundir(tmp / "rundir", raw, PIPE_NPROF)
     write_rundir(tmp / "one", raw, 1)
-    src = tmp / "rundir"
-    files = dict(filein=src / "MONORTM.IN", fileprof=src / "MONORTM_PROF.IN",
-                 hfile=src / "TAPE3")
-    best_max_batch = pipeline._max_batch
+    files = rundir_files(tmp / "rundir")
 
-    def drive(outdir, cap=None, **kw):
-        """One run with stdout kept; returns (result, wall s, stdout)."""
-        pipeline._max_batch = (best_max_batch if cap is None
-                               else lambda *a, **k: cap)
-        buf = io.StringIO()
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                res = pipeline.run(**{**files, **kw}, outdir=outdir,
-                                   device="cuda")
-            torch.cuda.synchronize()
-            return res, time.perf_counter() - t0, buf.getvalue()
-        finally:
-            pipeline._max_batch = best_max_batch
-
-    def stage_report(outdir):
-        text = (outdir / "MONORTM.LOG").read_text()
-        return text[text.index(" HOST PULL"):].rstrip()
-
-    res, wall, _ = drive(tmp / "warm")
+    res, wall, _ = drive(files, tmp / "warm")
     n_lines = int((tmp / "warm" / "MONORTM.LOG").read_text()
                   .split("TOTAL NUMBER OF LINES =")[1].split()[0])
     log(f"  warm run (cap from the device's free memory: "
@@ -384,21 +511,24 @@ def phase8_pipeline(tmp: Path, kernels, reset_counts) -> dict:
         f"{wall:.3f} s; {n_lines} lines read from TAPE3")
     check(n_lines == 3074, f"the pipeline read {n_lines} lines, not 3074")
     launches = None
-    outs = {}
+    outs, splits = {}, {}
     for cap in PIPE_CAPS:
         walls = []
         for rep in range(PIPE_REPS):
             out = tmp / f"cap{cap}_{rep}"
             reset_counts()
             torch.cuda.reset_peak_memory_stats()
-            res, wall, stdout = drive(out, cap=cap)
+            res, wall, stdout = drive(files, out, cap=cap)
             counts = {e: k.launches for e, k in kernels.items()}
+            splits[(cap, rep)] = split_of(res)
             walls.append(wall)
             tb = np.stack(res.tb)
             log(f"  cap {cap} run {rep + 1}: {wall:.3f} s, "
                 f"{PIPE_NPROF / wall:.3f} profiles/s; forward kernel "
-                f"launches {counts}; chunks (profiles, engine, all-Lorentz "
-                f"layers) {res.engines}; peak device memory "
+                f"launches {counts}; chunks (profiles, engine, number of "
+                f"all-Lorentz layers) "
+                f"{[(n, e, len(lor)) for n, e, lor in res.engines]}; peak "
+                f"device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
             check(tb.shape == (PIPE_NPROF, NWN), f"tb shape {tb.shape}")
             if not np.isfinite(tb).all():
@@ -422,10 +552,24 @@ def phase8_pipeline(tmp: Path, kernels, reset_counts) -> dict:
             if outs[(cap, rep)] != outs[(cap, 0)]:
                 FAILED.append(f"cap {cap}: MONORTM.OUT of run {rep + 1} "
                               f"differs from run 1")
+        log(f"  cap {cap}: engine split of each chunk (profiles, engine, "
+            f"all-Lorentz layers): {res.engines}")
+    c0, c1 = ((c, 0) for c in PIPE_CAPS)
+    same_split = splits[c0] == splits[c1]
+    same_bytes = outs[c0] == outs[c1]
     log(f"  MONORTM.OUT byte-identical between runs of one cap: "
         f"{all(outs[(c, r)] == outs[(c, 0)] for c in PIPE_CAPS for r in range(PIPE_REPS))}"
-        f"; cap {PIPE_CAPS[0]} vs cap {PIPE_CAPS[1]}: "
-        f"{outs[(PIPE_CAPS[0], 0)] == outs[(PIPE_CAPS[1], 0)]}")
+        f"; every profile's layers took the same engine at caps "
+        f"{PIPE_CAPS[0]} and {PIPE_CAPS[1]}: {same_split}; cap "
+        f"{PIPE_CAPS[0]} vs cap {PIPE_CAPS[1]}: {same_bytes}")
+    # the two forward instantiations are not bitwise equal on a layer both
+    # may take (batch_stages / engines_agree), so only runs in which every
+    # profile's layers took the same engine are held to the same bytes
+    if same_split and not same_bytes:
+        FAILED.append(f"MONORTM.OUT differs between caps {PIPE_CAPS[0]} "
+                      f"and {PIPE_CAPS[1]} under the same engine split")
+    if not same_split:
+        log("  caps not compared byte for byte: the engine split differs")
 
     # profile 1 against the port's CPU pipeline (plain line sums) on a
     # 1-profile copy of the rundir
@@ -449,7 +593,7 @@ def phase8_pipeline(tmp: Path, kernels, reset_counts) -> dict:
     # IATM=1: the layering on the host, the rest on the card
     (tmp / "iatm1").mkdir()
     (tmp / "iatm1" / "MONORTM.IN").write_text(IATM1_TAPE5)
-    res1, wall, _ = drive(tmp / "iatm1" / "out",
+    res1, wall, _ = drive(files, tmp / "iatm1" / "out",
                           filein=tmp / "iatm1" / "MONORTM.IN")
     tb1 = np.stack(res1.tb)
     log(f"  IATM=1 run: {wall:.3f} s, {tb1.shape[0]} profile x "
@@ -457,10 +601,172 @@ def phase8_pipeline(tmp: Path, kernels, reset_counts) -> dict:
         f"{float(tb1.min()):.4f}-{float(tb1.max()):.4f} K")
     if tb1.shape != (1, 11) or not np.isfinite(tb1).all():
         FAILED.append(f"IATM=1 run: Tb {tb1}")
-    return {"launches": launches}
+    return {"launches": launches, "raw": raw}
 
 
-def main() -> int:
+def phase9_float64(tmp: Path, raw, kernels, reset_counts) -> None:
+    """Phase 9 (see the module docstring)."""
+    from monortm_tpu_torch import pipeline
+    from monortm_tpu_torch.lines import load_catalog
+    from monortm_tpu_torch.models.od import (DENSE_LINE_TILE, DENSE_ROWS,
+                                             DENSE_WN_TILE, build_dense_tiles)
+    from monortm_tpu_torch.ops.lineshape import catalog_to_host
+
+    write_rundir(tmp / "rundir8", raw, F64_NPROF)
+    write_rundir(tmp / "one_sub", raw, 1, wn_step=F64_CPU_WN_STEP)
+    files = rundir_files(tmp / "rundir8")
+    cat = load_catalog(files["hfile"], 0.3, 55.0, tile=pipeline.LINE_TILE)
+    tiles = build_dense_tiles(cat, catalog_to_host(cat, torch.float64),
+                              np.linspace(0.3, 55.0, NWN), DENSE_WN_TILE,
+                              DENSE_LINE_TILE)
+    log(f"  dense block: {DENSE_ROWS} layer rows x {tiles['wt']} "
+        f"wavenumbers x {tiles['win']['mol'].shape[1]} windowed / "
+        f"{tiles['o2']['mol'].shape[1]} O2 lines; "
+        f"{len(tiles['cand'])} wavenumber tiles")
+    outs = {}
+    for name, cap in (("cap 8, run 1", F64_NPROF), ("cap 8, run 2", F64_NPROF),
+                      (f"cap {F64_CAPS[1]}", F64_CAPS[1])):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, _ = drive(files, tmp / f"f64 {name}", cap=cap,
+                             dtype=torch.float64)
+        counts = {e: k.launches for e, k in kernels.items()}
+        tb = np.stack(res.tb)
+        log(f"  float64 {name}: {wall:.3f} s, {F64_NPROF / wall:.4f} "
+            f"profiles/s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; chunks "
+            f"{[(n, e) for n, e, _ in res.engines]}; line-sum kernel "
+            f"launches {counts}")
+        if tb.dtype != np.float64 or tb.shape != (F64_NPROF, NWN) \
+                or not np.isfinite(tb).all():
+            FAILED.append(f"float64 {name}: Tb {tb.dtype} {tb.shape}")
+        if any(counts.values()) or any(e != "dense" for _, e, _ in
+                                       res.engines):
+            FAILED.append(f"float64 {name}: a float32 kernel engine ran")
+        outs[name] = ((tmp / f"f64 {name}" / "MONORTM.OUT").read_bytes(),
+                      res)
+    names = list(outs)
+    log("  " + stage_report(tmp / f"f64 {names[1]}").replace("\n", "\n  "))
+    for a, b in ((names[0], names[1]), (names[0], names[2])):
+        same = outs[a][0] == outs[b][0]
+        log(f"  float64 MONORTM.OUT {a} vs {b}: byte-identical {same}")
+        if not same:
+            FAILED.append(f"float64 MONORTM.OUT {a} differs from {b}")
+
+    # profile 1 against the port's CPU float64 pipeline, on every
+    # F64_CPU_WN_STEP-th wavenumber (the CPU's dense engine takes minutes
+    # for all 1024)
+    gpu = outs[names[1]][1].results[0]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref = pipeline.run(**rundir_files(tmp / "one_sub"),
+                           outdir=tmp / "one_sub" / "out", device="cpu",
+                           dtype=torch.float64).results[0]
+    sub = slice(None, None, F64_CPU_WN_STEP)
+    tb_err = float(np.max(np.abs(gpu.tb[sub] - ref.tb)))
+    od_bad = np.abs(gpu.otot[sub] - ref.otot) > (
+        F64_OD_ATOL + F64_OD_RTOL * np.abs(ref.otot))
+    od_rel = float(np.max(np.abs(gpu.otot[sub] - ref.otot)
+                          / np.maximum(np.abs(ref.otot), 1e-300)))
+    log(f"  CPU float64 pipeline (1 profile, {len(ref.tb)} wavenumbers) in "
+        f"{time.perf_counter() - t0:.1f} s; profile 1 tb vs CPU: "
+        f"max_abs_err={tb_err:.3e} K; total OD max rel err {od_rel:.3e}, "
+        f"violations of rtol {F64_OD_RTOL} atol {F64_OD_ATOL}: "
+        f"{int(od_bad.sum())}")
+    if tb_err > F64_TB_ATOL or od_bad.any():
+        FAILED.append(f"float64 profile 1 differs from the CPU pipeline: "
+                      f"Tb {tb_err} K, OD max rel {od_rel}")
+
+    # the float32 dense engine with TF32 allowed writes the same bytes
+    f32 = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            res, wall, _ = drive(files, tmp / f"f32 dense tf32 {tf32}",
+                                 dtype=torch.float32, engine="dense")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        f32[tf32] = (tmp / f"f32 dense tf32 {tf32}" /
+                     "MONORTM.OUT").read_bytes()
+        log(f"  float32 dense engine, allow_tf32={tf32}: {wall:.3f} s, "
+            f"{F64_NPROF / wall:.4f} profiles/s")
+    log(f"  float32 dense MONORTM.OUT with TF32 allowed vs not: "
+        f"byte-identical {f32[True] == f32[False]}")
+    if f32[True] != f32[False]:
+        FAILED.append("float32 dense MONORTM.OUT changes with allow_tf32")
+
+
+def phase10_infrared(cat, state, dev, kernels, reset_counts) -> None:
+    """Phase 10 (see the module docstring)."""
+    from monortm_tpu_torch.models.monortm import MonoRTM
+    from monortm_tpu_torch.types import LayerState
+
+    wn = np.unique(np.concatenate([np.linspace(a, b, 3)
+                                   for _, a, b in IR_BANDS.values()]))
+    m = MonoRTM(wn, 0.0, cat, nmol=22, device=dev)
+    names = [s.name for s in m.od_model.cont.subs]
+    log(f"  {len(wn)} wavenumbers {wn[0]:.1f}-{wn[-1]:.1f} cm^-1; "
+        f"sub-continua {names}; Rayleigh "
+        f"{m.od_model.cont.rayleigh_base is not None}")
+    emis = torch.full((len(wn),), 0.95, device=dev)
+    engine, lor = m.engine_split(state)
+    reset_counts()
+    out = m.forward(state, 288.0, emis, 1.0 - emis, irt=3, engine=engine,
+                    lor_layers=lor)
+    torch.cuda.synchronize()
+    counts = {e: k.launches for e, k in kernels.items()}
+    log(f"  engine {engine}, {len(lor)} all-Lorentz layers; forward kernel "
+        f"launches {counts}")
+    if not all(counts.values()):
+        FAILED.append(f"infrared forward: a kernel did not launch {counts}")
+    cpu = MonoRTM(wn, 0.0, cat, nmol=22, device="cpu")
+    st0 = LayerState(**{f: getattr(state, f)[0].cpu() for f in FIELDS})
+    ref = cpu.forward(st0, 288.0, emis.cpu(), 1.0 - emis.cpu(), irt=3,
+                      engine=engine, lor_layers=lor)
+    compare(out.od.od_total[0].cpu(), ref.od.od_total,
+            "infrared od_total vs CPU")
+    for sp, v in ref.od.oc.items():
+        compare(out.od.oc[sp][0].cpu(), v, f"infrared {sp} continuum vs CPU")
+    tb_err = float((out.rt.tb[0].cpu() - ref.rt.tb).abs().max())
+    log(f"  infrared tb vs CPU: max_abs_err={tb_err:.3e} K")
+    if tb_err > TB_ATOL or not bool(torch.isfinite(out.rt.tb).all()):
+        FAILED.append(f"infrared tb differs from the CPU path by {tb_err} K")
+    for name, (sp, a, b) in IR_BANDS.items():
+        band = torch.as_tensor((wn >= a) & (wn <= b), device=dev)
+        od = out.od.oc[sp][..., band]
+        if name not in names and name != "rayleigh":
+            FAILED.append(f"sub-continuum {name} was not built")
+        if not bool((od != 0).any()):
+            FAILED.append(f"sub-continuum {name}: {sp} OD all zero on "
+                          f"{a}-{b} cm^-1")
+        log(f"  {name}: {sp} OD on {a}-{b} cm^-1 in "
+            f"[{float(od.min()):.3e}, {float(od.max()):.3e}]")
+
+
+def print_batch_stages(model, dev) -> bool:
+    """Print `batch_stages` for chunks of PIPE_NPROF and PIPE_CAPS[1]
+    profiles of phase 8's state, and `engines_agree` over it; returns
+    whether every stage of profile 1 was bitwise the same."""
+    from monortm_tpu_torch.testing import synthetic_state
+    st = synthetic_state(nlay=NLAY, batch=PIPE_NPROF, device=dev,
+                         dtype=torch.float32)
+    rows = batch_stages(model, st, PIPE_CAPS[1])
+    log(f"  profile 1 in a chunk of {PIPE_NPROF} vs {PIPE_CAPS[1]} "
+        f"profiles, stage by stage:")
+    for name, same, diff in rows:
+        log(f"    {'same' if same else 'DIFFERS'}  {name}"
+            + ("" if same else f" (max abs difference {diff:.3e})"))
+    first = next((name for name, same, _ in rows if not same), None)
+    log(f"  first stage that depends on the chunk: {first}")
+    lor, same, diff = engines_agree(model, st)
+    log(f"  VOIGT=true vs VOIGT=false on the {len(lor)} all-Lorentz layers "
+        f"of {PIPE_NPROF} profiles: bitwise {same}, max abs difference "
+        f"{diff:.3e}")
+    return first is None
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
               file=sys.stderr)
@@ -500,6 +806,12 @@ def main() -> int:
     log(f"phase 1 build: {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
     phase_done(1)
+    if argv == ["--batch-stages"]:
+        # the chunk-dependence diagnosis of phase 8 alone
+        cat = synthetic_catalog_mw(n_h2o=2048, n_o2=1024, tile=256)
+        wn = np.linspace(0.3, 55.0, NWN)
+        model = MonoRTM(wn, float(wn[1] - wn[0]), cat, nmol=22, device=dev)
+        return 0 if print_batch_stages(model, dev) else 1
 
     def with_p(st, p_hpa):
         return LayerState(p=torch.full_like(st.p, p_hpa), t=st.t, tz=st.tz,
@@ -928,12 +1240,27 @@ def main() -> int:
     # ---- phase 8: the pipeline at full width ----------------------------
     log(f"phase 8 pipeline: {PIPE_NPROF} profiles x {NLAY} layers x {NWN} "
         f"wavenumbers x {n_lines} lines, chunk caps {PIPE_CAPS}")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        pipe = phase8_pipeline(Path(tmp), kernels, reset_counts)
+    if not print_batch_stages(model, dev):
+        FAILED.append("a stage of profile 1 depends on its chunk")
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = Path(tmp_dir.name)
+    pipe = phase8_pipeline(tmp, kernels, reset_counts)
     for eng, k in kernels.items():
         results[f"linesum_{k.name}"]["pipeline_launches"] = \
             pipe["launches"][eng]
     phase_done(8)
+
+    # ---- phase 9: float64 through the dense engine ----------------------
+    log(f"phase 9 float64 pipeline: phase 8's rundir, its first {F64_NPROF} "
+        f"profiles, caps {F64_CAPS}")
+    phase9_float64(tmp, pipe["raw"], kernels, reset_counts)
+    tmp_dir.cleanup()
+    phase_done(9)
+
+    # ---- phase 10: an infrared grid through the default kernels ---------
+    log("phase 10 infrared forward: every MT_CKD sub-continuum and Rayleigh")
+    phase10_infrared(cat, state, dev, kernels, reset_counts)
+    phase_done(10)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -31,7 +31,8 @@ class ForwardResult:
 
 class MonoRTM:
     """Configured forward model for one spectral setup, on one device (the
-    CUDA card unless `device` names another, e.g. "cpu").
+    CUDA card unless `device` names another, e.g. "cpu"), in float32 or
+    float64 (`dtype`; float64 takes the dense line engine).
 
     `tb` and `forward` are differentiable in every float field of the
     state: the retrieval adjoint is torch.autograd on `tb`, as
@@ -59,9 +60,11 @@ class MonoRTM:
         return self.od_model.engine_split(state)
 
     def forward(self, state: LayerState, tsfc, emis, refl, irt: int,
-                engine: str = "full", lor_layers=None) -> ForwardResult:
+                engine: str = None, lor_layers=None) -> ForwardResult:
         """Complete forward computation for one (batched) profile set.
 
+        engine: an `ODModel` engine, or None for the model's default
+        ("full" in float32, "dense" in float64).
         tsfc: a float or a [...] tensor of surface temperatures; emis/refl:
         [W] or [..., W] boundary spectra (tensors on the model's device);
         irt: 1 up / 2 limb / 3 down.
@@ -73,7 +76,7 @@ class MonoRTM:
         return ForwardResult(rt=rt, od=od, emis=emis, refl=refl)
 
     def tb(self, state: LayerState, tsfc, emis, refl, irt: int,
-           engine: str = "full", lor_layers=None):
+           engine: str = None, lor_layers=None):
         """Brightness temperatures only."""
         return self.forward(state, tsfc, emis, refl, irt, engine=engine,
                             lor_layers=lor_layers).rt.tb

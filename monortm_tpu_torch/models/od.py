@@ -8,15 +8,26 @@ packages build identical plans; the plans then live on the device.  Its
 call is a function of the layered state, batched over an optional
 leading profile axis.
 
-The line sum has two engines over the same kind of plan: "full" (the
-CUDA kernel with the Lorentz/SD-Voigt switch, nt=256/wt=128 by default)
-and "lorentz" (its VOIGT=false instantiation, exact where every line of a
-layer is in the Lorentz regime, on its own 128/128 plan).  "hybrid" splits
-the layer axis between them (`engine_split` picks the layers).
+The line sum has four engines.  Two run the CUDA kernel over the same
+kind of plan, in float32: "full" (the kernel with the Lorentz/SD-Voigt
+switch, nt=256/wt=128 by default) and "lorentz" (its VOIGT=false
+instantiation, exact where every line of a layer is in the Lorentz
+regime, on its own 128/128 plan); "hybrid" splits the layer axis between
+them (`engine_split` picks the layers).  "dense" is the JAX package's XLA
+engine (`_build_line_tiles`, `_one_wtile`, `line_od`): eager PyTorch over
+`ops.lineshape.line_od_block`, in float32 or float64; a float64 model
+always takes it, and asking it for a kernel engine raises.
 
-Not ported: the dense `line_od_block` engine, float64 runs,
-cross-sections (ops/xsec.py; `od_xsec` only adds an OD made elsewhere),
-meshes.
+The dense sweep runs over blocks of a fixed shape: DENSE_ROWS flattened
+layer rows (the last block padded), DENSE_WN_TILE wavenumbers and
+DENSE_LINE_TILE lines (the JAX package's tiles).  So every product and
+reduction in it sees the same shapes whatever the number of profiles in
+a call, and a profile's bits do not depend on the chunk it is computed
+in.  A model builds the dense tiles on the first call of the dense
+engine, so a float32 model that runs only the kernels never holds them.
+
+Not ported: cross-sections (ops/xsec.py; `od_xsec` only adds an OD made
+elsewhere), meshes.
 """
 
 from __future__ import annotations
@@ -33,7 +44,7 @@ from monortm_tpu_torch.ops.cloud import od_clw
 from monortm_tpu_torch.ops.continuum import (SPECIES, ContinuumFactors,
                                              ContinuumPlan)
 from monortm_tpu_torch.ops.lineshape import (LineConfig, catalog_to_device,
-                                             catalog_to_host)
+                                             catalog_to_host, line_od_block)
 from monortm_tpu_torch.ops.linesum import (VOIGT_KERNEL, line_od_forward,
                                            reverse_map)
 from monortm_tpu_torch.ops.linesum_lorentz import (LORENTZ_KERNEL,
@@ -41,8 +52,21 @@ from monortm_tpu_torch.ops.linesum_lorentz import (LORENTZ_KERNEL,
 from monortm_tpu_torch.ops.tips import Tips
 from monortm_tpu_torch.types import FIELDS, LayerState
 
-ENGINES = ("full", "lorentz", "hybrid")
+ENGINES = ("full", "lorentz", "hybrid", "dense")
 _KERNELS = {"full": VOIGT_KERNEL, "lorentz": LORENTZ_KERNEL}
+# the dense sweep's block: layer rows, wavenumbers and lines (see the
+# module docstring)
+DENSE_ROWS, DENSE_WN_TILE, DENSE_LINE_TILE = 64, 128, 4096
+# [rows, wavenumbers, lines] arrays a dense block holds at once
+# (line_od_block's shapes and their autograd-free temporaries)
+DENSE_LIVE = 48
+
+
+def dense_block_bytes(n_lines: int, itemsize: int) -> int:
+    """Device bytes the dense engine's block holds at once, whatever the
+    batch, for a catalog of `n_lines` lines at `itemsize` bytes."""
+    return (DENSE_ROWS * DENSE_WN_TILE * min(DENSE_LINE_TILE, n_lines)
+            * itemsize * DENSE_LIVE)
 
 
 @dataclasses.dataclass
@@ -163,9 +187,80 @@ def plan_to_device(plan: dict, device) -> dict:
     }
 
 
+def build_dense_tiles(catalog: PackedCatalog, host_cat: dict,
+                      wn64: np.ndarray, wn_tile: int, line_tile: int) -> dict:
+    """Tiles of the dense engine (host numpy): the JAX package's
+    `ODModel._build_line_tiles` and wavenumber tiling on one device.
+
+    The catalog splits into (a) O2 tiles, visited for every wavenumber
+    tile (no 25 cm^-1 cut for O2, modm.f90:384), and (b) nu-sorted
+    windowed tiles with a static candidate list per wavenumber tile, whose
+    nu range (pressure-shift margin included) reaches the tile.  Padding
+    lines repeat line 0 with valid=0, so the pruning changes no result.
+    """
+    nwn = len(wn64)
+    wt = min(wn_tile, max(8, nwn))
+    n_wt = -(-nwn // wt)
+    wn_pad = np.full(n_wt * wt, 1.0e6, np.float64)
+    wn_pad[:nwn] = wn64
+    wn_tiles = wn_pad.reshape(n_wt, wt)
+    wn_hi = wn_tiles.astype(np.float32)
+    wn_lo = (wn_tiles - wn_hi.astype(np.float64)).astype(np.float32)
+
+    valid = np.asarray(catalog.valid)
+    nu0 = np.asarray(catalog.nu0)
+    is_o2 = (np.asarray(catalog.mol) == 7) & valid
+    idx_o2 = np.nonzero(is_o2)[0]
+    idx_win = np.nonzero(~is_o2 & valid)[0]
+    idx_win = idx_win[np.argsort(nu0[idx_win], kind="stable")]
+
+    def tiles_from(idx):
+        nt = min(line_tile, max(8, len(idx)))
+        k = max(1, -(-len(idx) // nt))
+        rows = np.zeros(k * nt, np.int64)
+        rows[:len(idx)] = idx
+        mask = np.zeros(k * nt, bool)
+        mask[:len(idx)] = True
+        return rows.reshape(k, nt), mask.reshape(k, nt)
+
+    def gather(rows, mask):
+        out = {k: v[rows] for k, v in host_cat.items()}
+        out["valid"] = valid[rows] & mask
+        return out
+
+    o2 = gather(*tiles_from(idx_o2)) if len(idx_o2) else None
+    win, cands = None, [[] for _ in range(n_wt)]
+    if len(idx_win):
+        rows, mask = tiles_from(idx_win)
+        win = gather(rows, mask)
+        margin = 25.0
+        if len(catalog.pshift):
+            margin += 2.0 * float(np.max(np.abs(catalog.pshift)))
+        nu = np.where(mask, nu0[rows], np.nan)
+        lo = np.nanmin(nu, axis=1) - margin
+        hi = np.nanmax(nu, axis=1) + margin
+        for i, w in enumerate(wn_tiles):
+            w = w[w < 9.0e5]
+            wmin, wmax = (w.min(), w.max()) if len(w) else (0.0, 0.0)
+            cands[i] = np.nonzero((lo <= wmax) & (hi >= wmin))[0].tolist()
+    return {"wt": wt, "wn": wn_tiles, "wn_hi": wn_hi, "wn_lo": wn_lo,
+            "win": win, "o2": o2, "cand": cands}
+
+
+def dense_to_device(tiles: dict, device, dtype: torch.dtype) -> dict:
+    """The dense engine's tiles as tensors on `device`."""
+    cat = lambda c: None if c is None else catalog_to_device(c, device)
+    return {"wt": tiles["wt"], "cand": tiles["cand"],
+            "wn": torch.as_tensor(tiles["wn"], dtype=dtype, device=device),
+            "wn_hi": torch.as_tensor(tiles["wn_hi"], device=device),
+            "wn_lo": torch.as_tensor(tiles["wn_lo"], device=device),
+            "win": cat(tiles["win"]), "o2": cat(tiles["o2"])}
+
+
 class ODModel:
     """Optical depths for one spectral setup, on one device (the CUDA card
-    unless `device` names another), in float32."""
+    unless `device` names another), in float32 (every engine) or float64
+    (the dense engine)."""
 
     def __init__(self, wn: np.ndarray, dvset: float, catalog: PackedCatalog,
                  nmol: int = 39,
@@ -173,10 +268,8 @@ class ODModel:
                  line_cfg: LineConfig = LineConfig(), *, device="cuda",
                  dtype: torch.dtype = torch.float32,
                  wn_tile: int = 128, line_tile: int = 256):
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                "only float32 runs are ported; float64 needs the dense "
-                "line_od_block engine, which is not ported yet")
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype must be float32 or float64: {dtype}")
         # the device a tensor made there reports: a bare "cuda" becomes the
         # current card ("cuda:0"), so that `_check` accepts states made on
         # "cuda" (a torch.device("cuda") compares unequal to "cuda:0")
@@ -190,21 +283,25 @@ class ODModel:
                                   nmol=nmol, device=self.device)
         self.tips = Tips(self.device, dtype)
         self.catalog = catalog
-        self.host_cat = catalog_to_host(catalog)
+        self.host_cat = catalog_to_host(catalog, dtype)
         self.dev_cat = catalog_to_device(self.host_cat, self.device)
-
-        self.plan = build_plan(catalog, self.host_cat, self.wn64,
-                               nt=line_tile, wt=wn_tile)
-        # the all-Lorentz engine gets its own 128/128 plan over the same
-        # catalog unless the tiles already match (as monortm_tpu's ODModel)
-        if (line_tile, wn_tile) != (128, 128):
-            self.plan_lorentz = build_plan(catalog, self.host_cat, self.wn64,
-                                           nt=128, wt=128)
-        else:
-            self.plan_lorentz = self.plan
-        self.dev_plans = {"full": plan_to_device(self.plan, self.device),
-                           "lorentz": plan_to_device(self.plan_lorentz,
-                                                     self.device)}
+        self.default_engine = "full" if dtype == torch.float32 else "dense"
+        self._dense = None
+        self.dev_plans = {}
+        if dtype == torch.float32:
+            # the kernels' plans; the all-Lorentz engine gets its own
+            # 128/128 plan over the same catalog unless the tiles already
+            # match (as monortm_tpu's ODModel)
+            self.plan = build_plan(catalog, self.host_cat, self.wn64,
+                                   nt=line_tile, wt=wn_tile)
+            if (line_tile, wn_tile) != (128, 128):
+                self.plan_lorentz = build_plan(catalog, self.host_cat,
+                                               self.wn64, nt=128, wt=128)
+            else:
+                self.plan_lorentz = self.plan
+            self.dev_plans = {"full": plan_to_device(self.plan, self.device),
+                              "lorentz": plan_to_device(self.plan_lorentz,
+                                                        self.device)}
         # wn in the compute dtype (== the plan's wn_hi over the real grid)
         self.wn_t = torch.as_tensor(self.wn64, dtype=dtype,
                                     device=self.device)
@@ -219,16 +316,83 @@ class ODModel:
         return LayerState(**{f: getattr(state, f).to(self.dtype)
                              for f in FIELDS})
 
-    def line_od(self, state: LayerState, scor_flat, engine: str = "full",
-                lor_layers=None):
-        """Line OD [..., L, W, M] through the block-sparse line sum.
+    def _engine(self, engine):
+        """`engine`, or the model's default for None; a kernel engine on a
+        float64 model raises (the kernels are float32)."""
+        engine = self.default_engine if engine is None else engine
+        if engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}: {engine!r}")
+        if engine != "dense" and self.dtype != torch.float32:
+            raise ValueError(
+                f"engine {engine!r} runs the float32 line-sum kernels; a "
+                f"{self.dtype} model takes engine='dense'")
+        return engine
 
-        Leading batch axes are flattened into the kernel's layer axis.
-        engine="hybrid" sweeps the lor_layers indices (layers whose every
-        line passes zeta > 0.99) through the all-Lorentz instantiation and
-        the rest through the full one, scattering results back in layer
-        order.
+    @property
+    def dense(self) -> dict:
+        """The dense engine's tiles on the device, built on first use."""
+        if self._dense is None:
+            self._dense = dense_to_device(
+                build_dense_tiles(self.catalog, self.host_cat, self.wn64,
+                                  DENSE_WN_TILE, DENSE_LINE_TILE),
+                self.device, self.dtype)
+        return self._dense
+
+    def line_od_dense(self, state: LayerState, scor_flat):
+        """Line OD [..., L, W, M] (RFT and columns included) through the
+        dense engine: the JAX package's `line_od`, one device, with the
+        flattened layer rows swept in blocks of DENSE_ROWS."""
+        dn, dtype = self.dense, self.dtype
+        lead = state.p.shape
+        flat = lambda a, trail: a.to(dtype).reshape((-1,) + trail)
+        rows = [flat(state.p, ()), flat(state.t, ()),
+                flat(state.wkl, (state.wkl.shape[-1],)),
+                flat(state.wbrodl, ()),
+                flat(scor_flat, (scor_flat.shape[-1],))]
+        n = rows[0].shape[0]
+        nb = max(1, -(-n // DENSE_ROWS))
+        pad = nb * DENSE_ROWS - n
+        if pad:      # repeat row 0: finite operands, cropped below
+            rows = [torch.cat([a, a[:1].expand((pad,) + a.shape[1:])])
+                    for a in rows]
+        tile = lambda c, k: {key: v[k] for key, v in c.items()}
+        n_o2 = 0 if dn["o2"] is None else dn["o2"]["mol"].shape[0]
+        blocks = []
+        for b in range(nb):
+            args = [a[b * DENSE_ROWS:(b + 1) * DENSE_ROWS] for a in rows]
+            cols = []
+            for i, cand in enumerate(dn["cand"]):
+                if dtype == torch.float64:
+                    wn_c, split = dn["wn"][i], None
+                else:
+                    wn_c = dn["wn_hi"][i]
+                    split = (dn["wn_hi"][i], dn["wn_lo"][i])
+                acc = torch.zeros((DENSE_ROWS, dn["wt"], self.nmol),
+                                  dtype=dtype, device=self.device)
+                tiles = ([tile(dn["win"], k) for k in cand]
+                         + [tile(dn["o2"], k) for k in range(n_o2)])
+                for c in tiles:
+                    acc = acc + line_od_block(c, wn_c, split, *args,
+                                              self.line_cfg, self.nmol,
+                                              dtype)
+                cols.append(acc)
+            blocks.append(torch.cat(cols, dim=1))
+        out = torch.cat(blocks)[:n, :self.nwn]
+        return out.reshape(lead + out.shape[1:])
+
+    def line_od(self, state: LayerState, scor_flat, engine: str = None,
+                lor_layers=None):
+        """Line OD [..., L, W, M] (RFT and columns included).
+
+        The kernel engines flatten leading batch axes into the kernel's
+        layer axis.  engine="hybrid" sweeps the lor_layers indices (layers
+        whose every line passes zeta > 0.99) through the all-Lorentz
+        instantiation and the rest through the full one, scattering
+        results back in layer order; "dense" is `line_od_dense`.
         """
+        engine = self._engine(engine)
+        if engine == "dense":
+            return self.line_od_dense(state, scor_flat)
         if engine == "hybrid":
             L = state.p.shape[-1]
             lor = sorted(int(i) for i in (lor_layers or ()))
@@ -255,9 +419,6 @@ class ODModel:
             out = outL.new_zeros(outL.shape[:-3] + (L,) + outL.shape[-2:])
             out.index_copy_(-3, ixL, outL)
             return out.index_copy_(-3, ixV, outV)
-        if engine not in _KERNELS:
-            raise ValueError(f"engine must be one of {ENGINES}: {engine!r}")
-
         plan = self.dev_plans[engine]
         dtype = self.dtype
         lead = state.p.shape                       # [..., L]
@@ -285,7 +446,9 @@ class ODModel:
         0.99, modm.f90:427) in every profile take the all-Lorentz engine,
         which equals the full one there.  The predicate is evaluated on
         the model's device; only the per-layer verdict comes to the
-        host."""
+        host.  A float64 model has only the dense engine: ("dense", ())."""
+        if self.dtype != torch.float32:
+            return "dense", ()
         state = self._check(state)
         scor = self.tips.scor(state.t)
         rows = all_lorentz_predicate(
@@ -299,18 +462,21 @@ class ODModel:
             return "hybrid", tuple(np.nonzero(rows)[0].tolist())
         return "full", ()
 
-    def __call__(self, state: LayerState, engine: str = "full",
+    def __call__(self, state: LayerState, engine: str = None,
                  lor_layers=None, od_xsec=None) -> ODResult:
         """Full OD computation (modm.f90:200-272).
 
         od_total / od_by_mol come out wn-major, [..., W, L] and
         [..., W, M, L], for the RT solver; the rest [..., L, W].
+        engine: one of ENGINES, or None for the model's default ("full"
+        in float32, "dense" in float64).
         od_xsec: an optional [..., L, W] tensor on the model's device added
         to the total last, as the JAX package adds its host-made
         cross-section OD (the pipeline passes the TES cloud file's OD
         there; cross-sections themselves are not ported).
         """
         dtype = self.dtype
+        engine = self._engine(engine)
         state = self._check(state)
         scor = self.tips.scor(state.t)
         scor_flat = scor.reshape(scor.shape[:-2] + (39 * 9,))

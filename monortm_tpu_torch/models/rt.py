@@ -2,7 +2,12 @@
 
 The reference's up/down layer recurrences (RTMmono.f90:157-221) are
 prefix sums, so they run as cumulative sums along the layer axis, batched
-over any leading axes.
+over any leading axes.  Every sum and prefix sum over layers is a
+sequence of elementwise adds in layer order (`lsum`, `lcumsum`): a CUDA
+reduction or scan picks its summation order by the shape of its input,
+so `torch.sum` / `torch.cumsum` would make a profile's bits depend on the
+number of profiles computed with it (the JAX package pins the same sums
+with lax.scan in its pipeline).
 
 Conventions (identical to the reference):
   * layers are ordered surface -> top (IDU=1, RTMmono.f90:173)
@@ -35,6 +40,28 @@ class RTResult(NamedTuple):
     tmr: torch.Tensor      # mean radiating temperature
 
 
+def lsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over `dim` (the layer axis) in a fixed sequential order
+    (elementwise adds round exactly, so the result does not depend on
+    shapes or devices)."""
+    xm = x.movedim(dim, 0)
+    out = torch.zeros_like(xm[0])
+    for xl in xm:
+        out = out + xl
+    return out
+
+
+def lcumsum(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive prefix sum over the last axis in a fixed sequential
+    order, from the last element down when `reverse`."""
+    n = x.shape[-1]
+    run, cols = None, []
+    for i in (range(n - 1, -1, -1) if reverse else range(n)):
+        run = x[..., i] if run is None else run + x[..., i]
+        cols.append(run)
+    return torch.stack(cols[::-1] if reverse else cols, dim=-1)
+
+
 def _pade(tau):
     return 0.193 * tau + 0.013 * tau * tau
 
@@ -42,8 +69,9 @@ def _pade(tau):
 def rad_up_dn(od, t, tz, wn):
     """Up/downwelling path radiances + total transmittance.
 
-    Returns (rup, rdn, trtot, sumexp_dn, odtot); sumexp_dn is the
-    downwelling Beff-weighted sum reused by the mean radiating temperature.
+    Returns (rup, rdn, trtot, sumexp_dn, odtot); sumexp_dn holds the
+    downwelling Beff-weighted terms, whose layer sum rdn is also the
+    numerator of the mean radiating temperature.
     """
     wn = wn[..., None]                                   # align with layers
     bb = planck(wn, t)                                   # layer-average
@@ -51,24 +79,24 @@ def rad_up_dn(od, t, tz, wn):
 
     emit = -torch.expm1(-od)                             # 1 - exp(-od)
     pade = _pade(od)
-    odtot = torch.sum(od, dim=-1)
+    od_cum = lcumsum(od)
+    odtot = od_cum[..., -1]
 
     # transmittance from the top of layer l to TOA: exp(-sum_{k>l} od_k)
-    od_above = torch.flip(torch.cumsum(torch.flip(od, (-1,)), dim=-1),
-                          (-1,)) - od
+    od_above = lcumsum(od, reverse=True) - od
     # transmittance from the bottom of layer l to the surface
-    od_below = torch.cumsum(od, dim=-1) - od
+    od_below = od_cum - od
     tr_above = torch.exp(-od_above)
     tr_below = torch.exp(-od_below)
 
     # upwelling: boundary Planck at the layer's upper level (tz[l])
     beff_up = (bb + pade * bba[..., 1:]) / (1.0 + pade)
-    rup = torch.sum(tr_above * emit * beff_up, dim=-1)
+    rup = lsum(tr_above * emit * beff_up)
 
     # downwelling: boundary Planck at the layer's lower level (tz[l-1])
     beff_dn = (bb + pade * bba[..., :-1]) / (1.0 + pade)
     sumexp_dn = tr_below * emit * beff_dn
-    rdn = torch.sum(sumexp_dn, dim=-1)
+    rdn = lsum(sumexp_dn)
 
     trtot = torch.exp(-odtot)
     return rup, rdn, trtot, sumexp_dn, odtot
@@ -81,7 +109,7 @@ def rtm(od, t, tz, wn, tsfc, emis, refl, irt: int, tsky: float = c.TSKY):
     for irt 2 and 3 the surface temperature is the cosmic background
     (RTMmono.f90:113-124).  ref: RTMmono.f90:13-155.
     """
-    rup, rdn, trtot, sumexp_dn, odtot = rad_up_dn(od, t, tz, wn)
+    rup, rdn, trtot, _, odtot = rad_up_dn(od, t, tz, wn)
 
     if irt in (2, 3):
         tsfc = tsky
@@ -101,16 +129,15 @@ def rtm(od, t, tz, wn, tsfc, emis, refl, irt: int, tsky: float = c.TSKY):
 
     # mean radiating temperature (downwelling-only diagnostic,
     # Han & Westwater 2000 eq 14; RTMmono.f90:239-325)
-    radtmr = torch.sum(sumexp_dn, dim=-1) / (-torch.expm1(-odtot))
+    radtmr = rdn / (-torch.expm1(-odtot))
     tmr = brightness_temperature(wn, radtmr)
     return RTResult(rad=rad, tb=tb, rup=rup, rdn=rdn, trtot=trtot, tmr=tmr)
 
 
 def calctmr(od, t, tz, wn):
     """Standalone mean radiating temperature (RTMmono.f90:239-325)."""
-    _, _, _, sumexp_dn, odtot = rad_up_dn(od, t, tz, wn)
-    radtmr = torch.sum(sumexp_dn, dim=-1) / (-torch.expm1(-odtot))
-    return brightness_temperature(wn, radtmr)
+    _, rdn, _, _, odtot = rad_up_dn(od, t, tz, wn)
+    return brightness_temperature(wn, rdn / (-torch.expm1(-odtot)))
 
 
 class RTParts(NamedTuple):
@@ -126,9 +153,9 @@ def rt_parts(od, t, tz, wn) -> RTParts:
     """The layer-recurrence half of rtm: everything that needs the
     [..., W, L] optical depths, so that only O(W) arrays leave the
     device in the pipeline."""
-    rup, rdn, trtot, sumexp_dn, odtot = rad_up_dn(od, t, tz, wn)
-    radtmr = torch.sum(sumexp_dn, dim=-1) / (-torch.expm1(-odtot))
-    return RTParts(rup=rup, rdn=rdn, trtot=trtot, radtmr=radtmr)
+    rup, rdn, trtot, _, odtot = rad_up_dn(od, t, tz, wn)
+    return RTParts(rup=rup, rdn=rdn, trtot=trtot,
+                   radtmr=rdn / (-torch.expm1(-odtot)))
 
 
 def combine_boundary_np(wn, rup, rdn, trtot, radtmr, tsfc, emis, refl,

@@ -1,8 +1,8 @@
 """Cloud liquid water optics — Turner-Kneifel-Cadeddu double-Debye model.
 
 Port of `monortm_tpu.ops.cloud` (ODCLW_TKC / Forward_TKC,
-CloudOptProp.f90:29-157), elementwise on tensors.  The legacy
-Liebe-Hufford-Manabe model (`od_clw_lhm`) is not ported yet.
+CloudOptProp.f90:29-157, and the legacy Liebe-Hufford-Manabe model
+ODCLW_LHM, CloudOptProp.f90:162-195), elementwise on tensors.
 """
 
 from __future__ import annotations
@@ -61,3 +61,27 @@ def od_clw(wn, temp, clw):
     """
     freq_ghz = wn * c.CLIGHT / _HZ_PER_GHZ
     return tkc_mass_absorption(freq_ghz, temp - 273.15) * clw
+
+
+def od_clw_lhm(wn, temp, clw):
+    """Legacy Liebe-Hufford-Manabe 1991 model (CloudOptProp.f90:162-195).
+
+    Kept for parity with the reference's ODCLW_LHM; microwave only.
+    """
+    freq = wn * c.CLIGHT / 1.0e9
+    theta1 = 1.0 - rdiv(300.0, temp)
+    eps0 = 77.66 - 103.3 * theta1
+    eps1 = 0.0671 * eps0
+    eps2 = 3.52 + 7.52 * theta1
+    fp = 20.1 * torch.exp(7.88 * theta1)
+    fs = 39.8 * fp
+    # eps = (eps0-eps1)/(1+i f/fp) + (eps1-eps2)/(1+i f/fs) + eps2, expanded
+    # into real pairs
+    xp_, xs_ = freq / fp, freq / fs
+    dp_, ds_ = 1.0 + xp_ * xp_, 1.0 + xs_ * xs_
+    eps_re = (eps0 - eps1) / dp_ + (eps1 - eps2) / ds_ + eps2
+    eps_im = -(eps0 - eps1) * xp_ / dp_ - (eps1 - eps2) * xs_ / ds_
+    # Im[(eps-1)/(eps+2)]
+    den = (eps_re + 2.0) ** 2 + eps_im**2
+    im_ratio = (eps_im * (eps_re + 2.0) - (eps_re - 1.0) * eps_im) / den
+    return -(6.0 * c.PI / 299.792458) * clw * im_ratio * freq

@@ -1,14 +1,18 @@
-"""The LINES prologue: every O(layer x line) quantity of the line sum.
+"""The LINES prologue and the dense line engine.
 
-Port of `monortm_tpu.ops.lineshape`'s `LineConfig`, `catalog_to_host`,
+Port of `monortm_tpu.ops.lineshape`: `LineConfig`, `catalog_to_host`,
 `_coupling_coeffs` and `line_params` (modm.f90:301-380, 442-454,
 833-865): intensities, Lorentz/Doppler halfwidths, line-coupling Y/G
-slopes and the IBRD=1 species-specific broadening.  The dense engine
-`line_od_block` is not ported; the block-sparse line sum
-(`ops.linesum`) is the port's only line engine.
+slopes and the IBRD=1 species-specific broadening; and `line_od_block`,
+the dense engine (the JAX package's XLA path, modm.f90:277-831 as masked
+selects over [layer, wavenumber, line] blocks), which the port runs at
+float64 and, on request, at float32.  The block-sparse line sum
+(`ops.linesum`) is the float32 default.
 
-Precision: the line centre is the host-built two-float split nu0_hi +
-nu0_lo (formed in float64 numpy, never in torch float32).
+Precision: in float32 the line centre is the host-built two-float split
+nu0_hi + nu0_lo (formed in float64 numpy, never in torch float32), and
+wavenumber - line-centre differences use it; in float64 the centre is
+nu0 itself and the arithmetic is the reference's.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import torch
 
 from monortm_tpu_torch import constants as cst
 from monortm_tpu_torch.lines import PackedCatalog
+from monortm_tpu_torch.ops.arith import rdiv
+from monortm_tpu_torch.ops.voigt import sdvoigt, xlorentz
 
 DELTNU_CUT = 25.0
 TEMPLC = (200.0, 250.0, 296.0, 340.0)
@@ -43,11 +49,14 @@ class LineConfig:
     chi_fn: object = None
 
 
-def catalog_to_host(cat: PackedCatalog) -> dict:
-    """Packed catalog columns as host float32 numpy arrays, with the line
-    centre as its two-float split (the JAX package's layout for float32)."""
-    f = lambda a: np.asarray(a, np.float32)
-    return {
+def catalog_to_host(cat: PackedCatalog,
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """Packed catalog columns as host numpy arrays in `dtype`, with the
+    line centre as its two-float split in float32 and as nu0 itself in
+    float64 (the JAX package's layouts)."""
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    f = lambda a: np.asarray(a, npdt)
+    d = {
         "mol": np.asarray(cat.mol, np.int32),
         "iso_flat": np.asarray(cat.iso_flat, np.int32),
         "s0adj": f(cat.s0adj),
@@ -66,9 +75,13 @@ def catalog_to_host(cat: PackedCatalog) -> dict:
         "brd_hw": f(cat.brd_hw),
         "brd_tmp": f(cat.brd_tmp),
         "brd_shft": f(cat.brd_shft),
-        "nu0_hi": f(cat.nu0_hi),
-        "nu0_lo": f(cat.nu0_lo),
     }
+    if dtype == torch.float64:
+        d["nu0"] = np.asarray(cat.nu0, np.float64)
+    else:
+        d["nu0_hi"] = f(cat.nu0_hi)
+        d["nu0_lo"] = f(cat.nu0_lo)
+    return d
 
 
 def catalog_to_device(host_cat: dict, device) -> dict:
@@ -76,6 +89,17 @@ def catalog_to_device(host_cat: dict, device) -> dict:
     out = {k: torch.as_tensor(v, device=device) for k, v in host_cat.items()}
     for k in ("mol", "iso_flat", "brd_flg"):
         out[k] = out[k].to(torch.int64)
+    return out
+
+
+def _jsum(a, b):
+    """sum_j a[..., j] * b[..., j] over the 7 broadening molecules, in a
+    fixed sequential order: the JAX package's einsums, which on the card
+    would be matrix products whose summation order (and TF32 use) the
+    library picks per shape."""
+    out = a[..., 0] * b[..., 0]
+    for j in range(1, a.shape[-1]):
+        out = out + a[..., j] * b[..., j]
     return out
 
 
@@ -156,11 +180,13 @@ def line_params(cat: dict, p, t, wk, wbrod, scor_flat, cfg: LineConfig,
     if cfg.ibrd != 0:
         rho7 = rhorat[..., None] * wk[..., :7] / wtot[..., None]  # [..., 7]
         brd_on = (mol <= 7)[..., None].to(shift.dtype)
-        dshift = torch.einsum("...j,nj->...n", rho7,
-                              cat["brd_flg"].to(shift.dtype)
-                              * (cat["brd_shft"] - cat["pshift"][:, None]))
+        dshift = _jsum(rho7[..., None, :], cat["brd_flg"].to(shift.dtype)
+                       * (cat["brd_shft"] - cat["pshift"][:, None]))
         shift = shift + brd_on[..., 0] * dshift
-    xnu = cat["nu0_hi"].to(dtype) + (cat["nu0_lo"].to(dtype) + shift)
+    if dtype == torch.float64:
+        xnu = cat["nu0"] + shift
+    else:
+        xnu = cat["nu0_hi"].to(dtype) + (cat["nu0_lo"].to(dtype) + shift)
 
     # intensity (INTENS, modm.f90:860-865)
     scor_line = scor_flat[..., cat["iso_flat"]]               # [..., N]
@@ -181,8 +207,8 @@ def line_params(cat: dict, p, t, wk, wbrod, scor_flat, cfg: LineConfig,
         has_brd = (torch.sum(flg, dim=-1) > 0) & (mol <= 7)
         tmpcor = rt[..., None, None] ** cat["brd_tmp"]        # [..., N, 7]
         alfa_tmp = cat["brd_hw"] * tmpcor
-        alfsum = torch.einsum("...j,...nj->...n", rho7, flg * alfa_tmp)
-        rho_flg = torch.einsum("...j,nj->...n", rho7, flg)
+        alfsum = _jsum(rho7[..., None, :], flg * alfa_tmp)
+        rho_flg = _jsum(rho7[..., None, :], flg)
         hw_brd = (rhorat[..., None] - rho_flg) * alfa0 + alfsum
         own_flg = torch.gather(cat["brd_flg"], 1,
                                torch.clamp(mol - 1, 0, 6)[:, None])[:, 0]
@@ -201,3 +227,126 @@ def line_params(cat: dict, p, t, wk, wbrod, scor_flat, cfg: LineConfig,
     return {"shift": shift, "xnu": xnu, "stild": stild, "hwhm_c": hwhm_c,
             "hwhm_d": hwhm_d, "aip": aip, "bip": bip,
             "rhorat": rhorat, "rp": rp, "rp2": rp2, "wtot": wtot}
+
+
+def line_od_block(cat: dict, wn, wn_split, p, t, wk, wbrod, scor_flat,
+                  cfg: LineConfig, n_mol: int,
+                  dtype: torch.dtype = torch.float32):
+    """Per-molecule line optical depth of one dense block (the JAX
+    package's `line_od_block`).
+
+    cat:   device catalog of the block's N lines (`catalog_to_device`)
+    wn:    [W] wavenumbers (dtype)
+    wn_split: (wn_hi, wn_lo) float32 two-float split, or None in float64
+    p,t:   [...] layer pressure (hPa) / temperature (K)
+    wk:    [..., 39] molecular columns; wbrod: [...]
+    scor_flat: [..., 351] TIPS ratios flattened (39*9)
+    returns od_by_mol [..., W, n_mol], the RFT radiation term and the
+    column amounts included (modm.f90:436-438).
+
+    The line -> molecule attribution is a product with the one-hot in
+    float64 whatever `dtype`, so that TF32 cannot reach it; its
+    summation order is the one the library picks for the block's shape,
+    which callers keep fixed (`models.od.ODModel`'s dense sweep).
+    """
+    t_ = t.to(dtype)
+    wk = wk.to(dtype)
+
+    lp = line_params(cat, p, t, wk, wbrod, scor_flat, cfg, dtype)
+    shift, xnu, stild = lp["shift"], lp["xnu"], lp["stild"]
+    hwhm_c, hwhm_d = lp["hwhm_c"], lp["hwhm_d"]
+    aip, bip = lp["aip"], lp["bip"]
+    rp, rp2 = lp["rp"], lp["rp2"]
+    mol = cat["mol"]
+
+    if dtype == torch.float64:
+        d1 = wn[..., :, None] - xnu[..., None, :]             # [..., W, N]
+    else:
+        wn_hi, wn_lo = wn_split
+        d0 = ((wn_hi[..., :, None] - cat["nu0_hi"][..., None, :])
+              + (wn_lo[..., :, None] - cat["nu0_lo"][..., None, :]))
+        d1 = d0 - shift[..., None, :]
+    dsum = wn[..., :, None] + xnu[..., None, :]               # wn + nu
+
+    # line-shape selection (modm.f90:419-431)
+    zeta = hwhm_c / (hwhm_c + hwhm_d)
+    use_lorentz = (torch.abs(d1) > 100.0 * hwhm_d[..., None, :]) | \
+        (zeta[..., None, :] > 0.99)
+
+    hw = hwhm_c[..., None, :]
+    ad = hwhm_d[..., None, :]
+    sdep = cat["sdep"][None, :]
+
+    def K(dd):
+        dv = sdvoigt(dd, hw, ad, torch.broadcast_to(sdep, dd.shape))
+        dl = xlorentz(dd / hw) / hw
+        return torch.where(use_lorentz, dl, dv)
+
+    k1 = K(d1)
+    k2 = K(dsum)
+    # K3 (pedestal at 25 cm^-1) is wavenumber-independent per line:
+    # both kernels once per (layer, line), selected per wavenumber
+    d25 = torch.full_like(hwhm_c, DELTNU_CUT)
+    k3_v = sdvoigt(d25, hwhm_c, hwhm_d, torch.broadcast_to(cat["sdep"],
+                                                            hwhm_c.shape))
+    k3_l = xlorentz(d25 / hwhm_c) / hwhm_c
+    k3 = torch.where(use_lorentz, k3_l[..., None, :], k3_v[..., None, :])
+
+    # line-coupling Y factors (per wavenumber where needed)
+    inv_hw = rdiv(1.0, hw)
+    aip_w = aip[..., None, :]
+    bip_w = bip[..., None, :]
+    rp_w = rp[..., None, None]
+    rp2_w = rp2[..., None, None]
+    y1 = 1.0 + aip_w * inv_hw * rp_w * d1 + bip_w * rp2_w
+    y2 = 1.0 - aip_w * inv_hw * rp_w * dsum + bip_w * rp2_w
+    y1p = 1.0 + aip_w * inv_hw * rp_w * DELTNU_CUT + bip_w * rp2_w
+    y2p = 1.0 - aip_w * inv_hw * rp_w * DELTNU_CUT + bip_w * rp2_w
+
+    mirror = (dsum - DELTNU_CUT) <= 0.0
+    within = torch.abs(d1) <= DELTNU_CUT
+    ped = 2.0 - (d1 * d1) / (DELTNU_CUT * DELTNU_CUT)
+
+    xg = cat["xg"][None, :]
+    has_cpl = (xg == -1) | (xg == -3) | (xg == -5)
+    is_o2 = (mol == MOL_O2)[None, :]
+    is_co2 = (mol == MOL_CO2)[None, :]
+
+    # --- LSF branch trees (identical for SD-Voigt and Lorentz after
+    #     normalising K; modm.f90:567-831) ---
+    sls_other = torch.where(
+        has_cpl,
+        y1 * k1 - y1p * k3 + torch.where(mirror, y2 * k2 - y2p * k3, 0.0),
+        k1 - k3 + torch.where(mirror, k2 - k3, 0.0))
+
+    sls_o2 = torch.where(
+        has_cpl,
+        torch.where(xg == -1, k1 * y1 + k2 * y2, k1 + k2),
+        torch.where(within, k1 + torch.where(mirror, k2, 0.0), 0.0))
+
+    xp4 = k3 * ped
+    yp1 = (y1 - 1.0) * ped
+    sls_co2 = torch.where(
+        has_cpl,
+        torch.where((xg == -1) | (xg == -5), k1 * y1 - xp4 - k3 * yp1,
+                    k1 - xp4),
+        k1 - xp4)
+    if cfg.chi_fn is not None:   # CO2 chi hook (modm.f90:507,549,558)
+        sls_co2 = sls_co2 * cfg.chi_fn(d1)
+
+    sls = torch.where(is_o2, sls_o2, torch.where(is_co2, sls_co2, sls_other))
+
+    # 25 cm^-1 window cut, applied in LINES before the LSF call for
+    # non-O2 molecules (modm.f90:384)
+    keep = (within | is_o2) & cat["valid"][None, :]
+    contrib = torch.where(keep, sls, 0.0) * stild[..., None, :]
+
+    # per-molecule attribution: one-hot product, in float64
+    onehot = ((mol[:, None] - 1) == torch.arange(n_mol, device=mol.device)
+              ).to(torch.float64)                             # [N, M]
+    sf = torch.matmul(contrib.to(torch.float64), onehot).to(dtype)
+
+    # OD = RFT * W_species * SF (modm.f90:436-438)
+    rft = wn * torch.tanh(cst.RADCT * wn / (2.0 * t_[..., None]))
+    wk_m = wk[..., :n_mol]
+    return rft[..., :, None] * wk_m[..., None, :] * sf

@@ -106,9 +106,37 @@ def _branch_trees(d1, dsum, k1, k2, k3, ya, yb, fl, within, mirror, chi_fn):
                        torch.where(fl["co2"], sls_co2, sls_other))
 
 
-def _contrib_voigt(wn_hi, wn_lo, g, fl, chi_fn, f32_fallback=False):
+class _SdVoigt64(torch.autograd.Function):
+    """`sdvoigt` of float32 operands whose value is the float32 evaluation
+    and whose partials by (deltnu, alphal, alphad) come from a float64
+    evaluation on the same operands with float32's branch
+    (f32_fallback=True), returned in float32: what the adjoint kernel
+    does for an SD-Voigt lane (`Dual64`, csrc/linesum_math.cuh).  In
+    float32 the two-point construction cancels near vacuum and its
+    partials lose their digits; its value is the forward's, bit for
+    bit."""
+
+    @staticmethod
+    def forward(ctx, dd, hw, ad, sdep):
+        ctx.save_for_backward(dd, hw, ad, sdep)
+        return sdvoigt(dd, hw, ad, sdep)
+
+    @staticmethod
+    def backward(ctx, g):
+        dd, hw, ad, sdep = ctx.saved_tensors
+        with torch.enable_grad():
+            x = [v.detach().double().requires_grad_() for v in (dd, hw, ad)]
+            v = sdvoigt(*x, sdep.double(), f32_fallback=True)
+            gx = torch.autograd.grad(v, x, g.double())
+        return tuple(d.to(g.dtype) for d in gx) + (None,)
+
+
+def _contrib_voigt(wn_hi, wn_lo, g, fl, chi_fn, f32_fallback=False,
+                   sd64=False):
     """One [L, wt, nt] block of the Pallas `_kernel` (:143-228).
-    f32_fallback: see `ops.voigt.sdvoigt`."""
+    f32_fallback: see `ops.voigt.sdvoigt`.  sd64: float32 SD-Voigt lanes
+    take their partials in float64 (`_SdVoigt64`); values are
+    unchanged."""
     nu_hi, nu_lo, sdep = g["nu_hi"], g["nu_lo"], g["sdep"]
     shift, hw, ad = g["shift"], g["hw"], g["ad"]
     xnu = nu_hi + (nu_lo + shift)
@@ -129,8 +157,11 @@ def _contrib_voigt(wn_hi, wn_lo, g, fl, chi_fn, f32_fallback=False):
     pi_hw2 = hw * hw
 
     def K(dd):
-        dv = sdvoigt(dd, hw, ad, torch.broadcast_to(sdep, dd.shape),
-                     f32_fallback=f32_fallback)
+        sdep_b = torch.broadcast_to(sdep, dd.shape)
+        if sd64 and dd.dtype == torch.float32:
+            dv = _SdVoigt64.apply(dd, hw, ad, sdep_b)
+        else:
+            dv = sdvoigt(dd, hw, ad, sdep_b, f32_fallback=f32_fallback)
         return torch.where(use_lor, hw_pi / (pi_hw2 + dd * dd), dv)
 
     sls = _branch_trees(d1, dsum, K(d1), K(dsum), k3, g["ya"], g["yb"], fl,
@@ -220,9 +251,13 @@ def line_sum_bwd_plain(pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
                        nt: int, wt: int, n_mol: int, g, chi_fn=None,
                        f32_fallback: bool = False):
     """Plain PyTorch version of the VOIGT=true adjoint kernel: the seven
-    cotangents (PER_LN order) for a cotangent g [L, Wp, n_mol].
-    f32_fallback: see `ops.voigt.sdvoigt`."""
-    contrib = functools.partial(_contrib_voigt, f32_fallback=f32_fallback)
+    cotangents (PER_LN order) for a cotangent g [L, Wp, n_mol].  As in the
+    kernel, a float32 SD-Voigt lane's partials are taken in float64
+    (`_SdVoigt64`); the Lorentz lanes' are float32 reverse mode.
+    f32_fallback: see `ops.voigt.sdvoigt` (for float64 operands, a
+    reference of the float32 adjoint)."""
+    contrib = functools.partial(_contrib_voigt, f32_fallback=f32_fallback,
+                                sd64=True)
     d = sweep_bwd_plain(contrib, pre, mol, wn_hi, wn_lo, cand_map,
                         cand_valid, nt, wt, n_mol, g, chi_fn)
     return tuple(d[k] for k in PER_LN)

@@ -7,9 +7,11 @@ code, copied: parsing, layering, profile scaling, the MONORTM.LOG echo
 and tables, chunking of equal-shape profiles and the writer.  The device
 half, per chunk of profiles stacked into one [B, nlay] state:
 
-- the engine split (`ODModel.engine_split`, on the model's device,
-  margin 0): layers whose every line is in the Lorentz regime take the
-  line sum's VOIGT=false instantiation, the rest VOIGT=true;
+- the line engine: in float32 by default the engine split
+  (`ODModel.engine_split`, on the model's device, margin 0): layers whose
+  every line is in the Lorentz regime take the line sum's VOIGT=false
+  instantiation, the rest VOIGT=true; in float64 (or on request) the
+  dense engine, eager PyTorch over fixed-shape blocks;
 - the OD model (line-sum kernels, continuum, cloud) and the layer sums of
   everything the writer prints, in a fixed sequential order, so that only
   [B, W] and [B, W, M] arrays cross to the host unless IOD=1 / NetCDF
@@ -24,8 +26,8 @@ Nothing moves to the CPU behind the caller's back: a run on "cuda"
 without a card raises, and a kernel that fails to build or launch fails
 the run.
 
-Not ported (ROADMAP): cross-sections (IXSECT >= 1 raises), float64 runs
-(the dense `line_od_block` engine), meshes and multi-controller runs.
+Not ported (ROADMAP): cross-sections (IXSECT >= 1 raises), meshes and
+multi-controller runs.
 """
 
 from __future__ import annotations
@@ -55,9 +57,10 @@ from monortm_tpu_torch.io.tape5 import Tape5Reader, count_profiles
 from monortm_tpu_torch.io.tape7 import write_tape7
 from monortm_tpu_torch.lines import load_catalog
 from monortm_tpu_torch.models.monortm import ForwardResult, MonoRTM
-from monortm_tpu_torch.models.od import ODResult
-from monortm_tpu_torch.models.rt import (RTParts, RTResult,
-                                         combine_boundary_np, rt_parts)
+from monortm_tpu_torch.models.od import ODResult, dense_block_bytes
+from monortm_tpu_torch.models.rt import RTParts, RTResult
+from monortm_tpu_torch.models.rt import combine_boundary_np, rt_parts
+from monortm_tpu_torch.models.rt import lsum as _lsum
 from monortm_tpu_torch.ops.lineshape import LineConfig
 from monortm_tpu_torch.types import HostState, irt_from_angle
 from monortm_tpu_torch.utils.trace import StageTimer, profile_trace
@@ -217,7 +220,8 @@ class RunResult:
     tb: list          # per profile [W]
     rad: list
     results: list     # per profile io.output.ProfileOutput
-    # per chunk: (profiles, engine, number of all-Lorentz layers)
+    # per chunk: (profiles, engine, the layers the all-Lorentz kernel
+    # took)
     engines: list = dataclasses.field(default_factory=list)
 
 
@@ -251,27 +255,25 @@ def _device_budget_bytes(device: torch.device) -> float:
 
 
 def _max_batch(nwn: int, nlay: int, nmol: int, n_lines: int,
-               budget_bytes: float) -> int:
+               budget_bytes: float, itemsize: int = 4,
+               dense: bool = False) -> int:
     """Cap the profile batch of a chunk so that its device work fits.
 
     Per profile: the [W, M, L] line OD and the [W, L] totals and
-    continua (the JAX package's estimate), plus the prologue's
-    per-(layer, line) operands, ~64 float32 arrays live at once.  This
-    cap is what bounds a chunk on the card: the port keeps no limit on
-    line-sum evaluations per call, since a CUDA launch has no execution
-    time limit."""
-    per = max(1, nwn * nlay * (nmol + 6) * 4 * 2 + nlay * n_lines * 4 * 64)
-    return int(max(1, min(1024, budget_bytes // per)))
-
-
-def _lsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Layer sum in a fixed sequential order (elementwise adds round
-    exactly, so the result does not depend on shapes or devices)."""
-    xm = x.movedim(dim, 0)
-    out = torch.zeros_like(xm[0])
-    for xl in xm:
-        out = out + xl
-    return out
+    continua (the JAX package's estimate) at `itemsize` bytes, plus for
+    the kernels the prologue's per-(layer, line) operands, ~64 arrays live
+    at once.  The dense engine instead holds one block of fixed shape
+    (`models.od.dense_block_bytes`), whatever the batch.  This cap is
+    what bounds a chunk on the card: the port keeps no limit on line-sum
+    evaluations per call, since a CUDA launch has no execution time
+    limit."""
+    per = nwn * nlay * (nmol + 6) * itemsize * 2
+    fixed = 0
+    if dense:
+        fixed = dense_block_bytes(n_lines, itemsize)
+    else:
+        per += nlay * n_lines * itemsize * 64
+    return int(max(1, min(1024, (budget_bytes - fixed) // max(1, per))))
 
 
 # the line-sum kernel plan's tiles, lines and wavenumbers (the JAX
@@ -280,22 +282,38 @@ def _lsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 LINE_TILE, WN_TILE = 256, 128
 
 
+ENGINES = ("auto", "dense", "full", "hybrid")
+
+
 def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
         fileout="MONORTM.OUT", outdir=".", *, device="cuda",
-        dtype: torch.dtype = torch.float32, netcdf: bool = False,
-        profile_dir=None, workers=None) -> RunResult:
+        dtype: torch.dtype = torch.float32, engine: str = "auto",
+        emis_dir=None, netcdf: bool = False, profile_dir=None,
+        workers=None) -> RunResult:
     """Run the full MONORTM.IN -> MONORTM.OUT pipeline on one device.
 
     device: "cuda" (the default; raises without a card) or "cpu", where
-    the line sums take their plain PyTorch versions.  workers: host
-    processes for IATM=1 layering
+    the line sums take their plain PyTorch versions.  dtype: float32 or
+    float64.  engine (the JAX package's choices under the port's names):
+    "auto" (float32: both line-sum kernels through the per-chunk engine
+    split; float64: "dense"), "dense" (the JAX package's "xla"), "full"
+    (the VOIGT=true kernel alone, its "pallas") or "hybrid" (the kernels
+    through the split); the kernels are float32, so "full" and "hybrid"
+    at float64 raise.  emis_dir: the directory of the EMISSION /
+    REFLECTION files (default: the "in" directory beside MONORTM.IN).
+    workers: host processes for IATM=1 layering
     (atmos.tape5_atm.profiles_from_tape5_iter).  profile_dir: write a
     torch.profiler trace there.
     """
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            "only float32 runs are ported to monortm_tpu_torch; float64 "
-            "needs the dense line_od_block engine, which is not ported yet")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be float32 or float64: {dtype}")
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}: {engine!r}")
+    if engine == "auto":
+        engine = "hybrid" if dtype == torch.float32 else "dense"
+    if engine != "dense" and dtype != torch.float32:
+        raise ValueError(f"engine {engine!r} runs the float32 line-sum "
+                         f"kernels; a {dtype} run takes engine='dense'")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run(device='cuda') needs a CUDA device; pass "
@@ -320,7 +338,7 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                                tile=LINE_TILE)
 
     # boundary spectra (EMISS_REFLEC, monortm_sub.F90:506-516)
-    ed = filein.parent / "in"
+    ed = Path(emis_dir) if emis_dir else filein.parent / "in"
     emis = emis_io.boundary_spectrum(
         wn, cfg.bndemi, ed / "EMISSION" if cfg.bndemi[0] < 0 else None)
     refl = emis_io.boundary_spectrum(
@@ -422,7 +440,7 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                     clw_col=clw_col, od_xsec=od_xsec,
                     irt=irt, tbound=tbound)
 
-    npdt = np.float32
+    npdt = np.float64 if dtype == torch.float64 else np.float32
     results: dict[int, Any] = {}
     keep_layers = cfg.iod == 1 or netcdf
     host_bytes = [0]
@@ -488,8 +506,10 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                    pr["od_xsec"] is not None)
             buffers.setdefault(key, []).append(len(prepped) - 1)
             if key not in bmax_of:
-                bmax_of[key] = _max_batch(len(wn), key[0], key[2], n_cat,
-                                          budget)
+                bmax_of[key] = _max_batch(
+                    len(wn), key[0], key[2], n_cat, budget,
+                    itemsize=np.dtype(npdt).itemsize,
+                    dense=engine == "dense")
             if len(buffers[key]) >= bmax_of[key]:
                 yield emit(key)
         # layering is complete here: write the TAPE7 checkpoint artifact
@@ -529,12 +549,15 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                 ox = torch.as_tensor(ox, device=device)
         # the per-layer zeta > 0.99 predicate on the model's device at
         # margin 0; its verdict (one bool per layer) is a host sync
-        with timer.stage("engine-predicate"):
-            engine, lor = model.engine_split(state)
-        out.engines.append((len(item["chunk"]), engine,
-                            item["nlay"] if engine == "lorentz" else len(lor)))
+        eng, lor = engine, ()
+        if engine == "hybrid":
+            with timer.stage("engine-predicate"):
+                eng, lor = model.engine_split(state)
+        out.engines.append((len(item["chunk"]), eng,
+                            tuple(range(item["nlay"])) if eng == "lorentz"
+                            else tuple(lor)))
         with timer.stage("device-dispatch"), torch.no_grad():
-            od = model.od_model(state, engine=engine, lor_layers=lor,
+            od = model.od_model(state, engine=eng, lor_layers=lor,
                                 od_xsec=ox)
             # layer reductions on the device: the [B, W, M, L] array
             # stays there and only the [B, W, M] sums cross to the host
@@ -681,8 +704,8 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
               f"{torch.__version__}, {device})\n")
     log.write(f" HOST PULL: {host_bytes[0]} bytes device->host "
               f"(per-layer arrays pulled: {keep_layers})\n")
-    for n, engine, n_lor in out.engines:
-        log.write(f" ENGINE SPLIT: {n} profile(s): {engine}, {n_lor} "
+    for n, eng, lor in out.engines:
+        log.write(f" ENGINE SPLIT: {n} profile(s): {eng}, {len(lor)} "
                   f"all-Lorentz layer(s)\n")
     log.write(timer.report())
     log.close()

@@ -142,6 +142,15 @@ def test_synthetic_fixtures_identical():
 
 
 def test_float64_model_not_ported():
-    with pytest.raises(NotImplementedError, match="float64"):
-        MonoRTM(WN, 0.5, synthetic_catalog_mw(n_h2o=8, n_o2=4), nmol=22,
+    """A float64 model was once refused; now it is built, takes the dense
+    engine by default, and refuses a float32 kernel engine, naming the
+    dtype (tests/test_torch_dense.py holds its values)."""
+    m = MonoRTM(WN, 0.5, synthetic_catalog_mw(n_h2o=8, n_o2=4), nmol=22,
                 device="cpu", dtype=torch.float64)
+    assert m.od_model.default_engine == "dense"
+    st = synthetic_state(nlay=3, device="cpu")
+    assert m.od_model(st).od_total.dtype == torch.float64
+    with pytest.raises(ValueError, match="float64"):
+        m.forward(st, 288.0, torch.ones(len(WN), dtype=torch.float64),
+                  torch.zeros(len(WN), dtype=torch.float64), irt=3,
+                  engine="full")

@@ -8,6 +8,13 @@ wavenumbers, 2 layers) and an IATM=1 run (US standard, 0-30 km, 0.2-1.2
 cm^-1).  Tb / radiance / TMR agree at rtol 5e-5, atol 1e-4 K, and so does
 every numeric token of MONORTM.OUT, of the IOD=1 layer files and of the
 NetCDF variables; every other token and the LOG's echo are equal.
+
+In float64 the port's `run(dtype=float64)` (the dense engine) is held to
+`monortm_tpu.pipeline.run(dtype=float64, engine="xla", mesh=None)` on both
+rundirs at the e2e oracle's float64 budgets (tests/test_e2e_oracle.py):
+Tb and TMR within 1e-9 K, radiance, transmittance and OD at rtol 1e-10
+(atol 1e-14), every numeric token of MONORTM.OUT likewise.  A chunked run
+writes the same bytes as a single chunk.
 """
 
 import re
@@ -25,6 +32,8 @@ from monortm_tpu_torch.testing import make_minimal_rundir
 from tests.test_torch_io import iatm1_tape5
 
 RTOL, ATOL = 5e-5, 1e-4
+# float64: Tb / TMR in K, the rest relative (atol 1e-14)
+F64_TB_ATOL, F64_RTOL, F64_ATOL = 1e-9, 1e-10, 1e-14
 
 
 def _files(d):
@@ -79,15 +88,21 @@ def iatm1(tmp_path_factory):
     return d, ref, _port(d, "port")
 
 
-def _same_results(mine, ref):
+def _same_results(mine, ref, f64=False):
     assert len(mine.results) == len(ref.results) > 0
     np.testing.assert_array_equal(mine.wn, ref.wn)
     for a, b in zip(mine.results, ref.results):
         for f in ("tb", "rad", "tmr", "trtot", "otot"):
             x = np.asarray(getattr(a, f))
             assert np.isfinite(x).all(), f
+            if not f64:
+                tol = dict(rtol=RTOL, atol=ATOL)
+            elif f in ("tb", "tmr"):
+                tol = dict(rtol=0.0, atol=F64_TB_ATOL)
+            else:
+                tol = dict(rtol=F64_RTOL, atol=F64_ATOL)
             np.testing.assert_allclose(x, np.asarray(getattr(b, f)),
-                                       rtol=RTOL, atol=ATOL, err_msg=f)
+                                       err_msg=f, **tol)
 
 
 def _num(tok):
@@ -97,8 +112,8 @@ def _num(tok):
         return None
 
 
-def _same_tokens(mine, ref):
-    """Equal non-numeric tokens, numeric ones at RTOL / ATOL."""
+def _same_tokens(mine, ref, rtol=RTOL, atol=ATOL):
+    """Equal non-numeric tokens, numeric ones at rtol / atol."""
     la, lb = mine.read_text().splitlines(), ref.read_text().splitlines()
     assert len(la) == len(lb), (mine, len(la), len(lb))
     for sa, sb in zip(la, lb):
@@ -110,7 +125,7 @@ def _same_tokens(mine, ref):
                 assert x == y, (sa, sb)
             else:
                 assert fx is not None, (x, y, sb)
-                assert abs(fx - fy) <= ATOL + RTOL * abs(fy), (x, y, sb)
+                assert abs(fx - fy) <= atol + rtol * abs(fy), (x, y, sb)
 
 
 def _log_head(path):
@@ -187,14 +202,17 @@ def test_iatm1_same_tb_and_tape7(iatm1):
 
 def test_chunked_run_equals_single_chunk(iatm0, monkeypatch):
     """_max_batch forced to 1: three chunks through the producer thread
-    (dispatch of chunk N+1 before the pull of chunk N)."""
+    (dispatch of chunk N+1 before the pull of chunk N) write the bytes of
+    one chunk, as the JAX package's chunked run does
+    (tests/test_pipeline.py)."""
     d, _, single = iatm0
     monkeypatch.setattr(pipeline, "_max_batch", lambda *a, **k: 1)
     chunked = _port(d, "chunked")
     assert [n for n, _, _ in chunked.engines] == [1, 1, 1]
     assert [n for n, _, _ in single.engines] == [3]
     _same_results(chunked, single)
-    _same_tokens(d / "chunked" / "MONORTM.OUT", d / "port" / "MONORTM.OUT")
+    assert (d / "chunked" / "MONORTM.OUT").read_bytes() == \
+        (d / "port" / "MONORTM.OUT").read_bytes()
 
 
 def test_cli_writes_the_same_output(iatm0):
@@ -208,17 +226,22 @@ def test_cli_writes_the_same_output(iatm0):
 
 
 def test_refusals(iatm0, tmp_path):
-    """float64 and IXSECT >= 1 name what is missing; without a card the
-    default device raises; nothing falls back to the CPU."""
+    """A float32 kernel engine asked for at float64 and IXSECT >= 1 raise
+    before any file is written; without a card the default device
+    raises; nothing falls back to the CPU."""
     d, _, _ = iatm0
     f = _files(d)
     args = ["--in", str(f["filein"]), "--prof", str(f["fileprof"]),
             "--tape3", str(f["hfile"]), "--outdir", str(tmp_path / "o")]
-    with pytest.raises(NotImplementedError, match="line_od_block"):
-        cli.main(args + ["--device", "cpu", "--precision", "float64"])
     import torch
-    with pytest.raises(NotImplementedError, match="line_od_block"):
-        run(**f, outdir=tmp_path / "o", device="cpu", dtype=torch.float64)
+    for engine in ("full", "hybrid"):
+        with pytest.raises(ValueError, match="float64"):
+            cli.main(args + ["--device", "cpu", "--precision", "float64",
+                             "--engine", engine])
+        with pytest.raises(ValueError, match="float64"):
+            run(**f, outdir=tmp_path / "o", device="cpu",
+                dtype=torch.float64, engine=engine)
+    assert not (tmp_path / "o").exists()
     (tmp_path / "MONORTM.IN").write_text(iatm1_tape5(ixsect=1))
     with pytest.raises(NotImplementedError, match="cross-sections"):
         run(filein=tmp_path / "MONORTM.IN", hfile=f["hfile"],
@@ -229,6 +252,78 @@ def test_refusals(iatm0, tmp_path):
             run(**f, outdir=tmp_path / "o")
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(args)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(args + ["--precision", "float64"])
+    assert not (tmp_path / "o" / "MONORTM.OUT").exists()
+
+
+def _f64_rundir(d, kind):
+    make_minimal_rundir(d, nprof=3 if kind == "iatm0" else 1)
+    if kind == "iatm1":
+        (d / "MONORTM.IN").write_text(iatm1_tape5())
+
+
+@pytest.mark.parametrize("kind", ["iatm0", "iatm1"])
+def test_float64_run_matches_jax(kind, tmp_path, monkeypatch):
+    """run(dtype=float64) against the JAX float64 pipeline's dense
+    engine, on make_minimal_rundir (3 profiles) and the IATM=1 rundir."""
+    import torch
+    _f64_rundir(tmp_path, kind)
+    # the JAX package's Python layering walk, which the port copies
+    monkeypatch.setattr(j_native, "_LIB", False)
+    ref = j_run(**_files(tmp_path), outdir=tmp_path / "jax", mesh=None,
+                engine="xla", dtype=jnp.float64)
+    mine = run(**_files(tmp_path), outdir=tmp_path / "port", device="cpu",
+               dtype=torch.float64)
+    assert all(np.asarray(r.tb).dtype == np.float64 for r in mine.results)
+    assert [e for _, e, _ in mine.engines] == ["dense"]
+    _same_results(mine, ref, f64=True)
+    _same_tokens(tmp_path / "port" / "MONORTM.OUT",
+                 tmp_path / "jax" / "MONORTM.OUT", rtol=F64_RTOL,
+                 atol=F64_TB_ATOL)
+    assert _log_head(tmp_path / "port" / "MONORTM.LOG") == \
+        _log_head(tmp_path / "jax" / "MONORTM.LOG")
+
+
+def test_cli_float64_writes_the_same_output(tmp_path):
+    import torch
+    _f64_rundir(tmp_path, "iatm0")
+    f = _files(tmp_path)
+    run(**f, outdir=tmp_path / "run", device="cpu", dtype=torch.float64)
+    assert cli.main(["--in", str(f["filein"]), "--prof", str(f["fileprof"]),
+                     "--tape3", str(f["hfile"]), "--outdir",
+                     str(tmp_path / "cli"), "--device", "cpu",
+                     "--precision", "float64"]) == 0
+    assert (tmp_path / "cli" / "MONORTM.OUT").read_bytes() == \
+        (tmp_path / "run" / "MONORTM.OUT").read_bytes()
+
+
+def test_emis_dir(tmp_path):
+    """A negative leading emissivity coefficient reads EMISSION from
+    emis_dir, as the JAX pipeline's emis_dir does; without it the run
+    looks in the "in" directory beside MONORTM.IN and fails there."""
+    make_minimal_rundir(tmp_path, nprof=2)
+    text = (tmp_path / "MONORTM.IN").read_text()
+    rec = "     0.    1.0       0.000E+00"
+    assert rec in text
+    (tmp_path / "MONORTM.IN").write_text(
+        text.replace(rec, "     0.   -1.0       0.000E+00"))
+    ed = tmp_path / "spectra"
+    ed.mkdir()
+    z = 0.9 - 0.01 * np.arange(21)
+    (ed / "EMISSION").write_text(
+        f"{0.0:10.3E}{2.0:10.3E}{0.1:10.3E}     {21:5d}\n"
+        + "".join(f"{v:15.7E}\n" for v in z))
+    ref = _jax(tmp_path, "jax", emis_dir=ed)
+    mine = _port(tmp_path, "port", emis_dir=ed)
+    _same_results(mine, ref)
+    emis = np.asarray(mine.results[0].emis)
+    np.testing.assert_allclose(emis, np.asarray(ref.results[0].emis))
+    assert 0.8 < emis.min() and emis.max() < 0.9
+    _same_tokens(tmp_path / "port" / "MONORTM.OUT",
+                 tmp_path / "jax" / "MONORTM.OUT")
+    with pytest.raises(FileNotFoundError):
+        _port(tmp_path, "nodir")
 
 
 def test_cloud_file_od(tmp_path):
