@@ -14,7 +14,8 @@ CPU.
 
 This package imports `torch` and never `jax`, nor any module of the JAX
 package: it carries its own copies of the host modules it needs
-(`constants`, `lines`, `io.tape3`, `data.loader` and its tables).
+(`constants`, `lines`, the `io` readers and writers, `atmos`, `ops.xsec`,
+`data.loader` and its tables, and the native helper's C++ source).
 """
 
 __version__ = "0.1.0"

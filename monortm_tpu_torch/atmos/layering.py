@@ -8,10 +8,13 @@ runs on the host; its output is the host layered state (`types.HostState`)
 that the pipeline stacks and uploads to the device forward model.
 
 A copy of `monortm_tpu.atmos.layering`.  Where the JAX package calls its
-native C++ helper (the AMERGE walk, the whole-path and per-layer ALAYER
-integrations), this copy always takes the Python walk, which the JAX
-package keeps as the native helper's fallback and oracle; the port's own
-native helper is a later step (ROADMAP).
+native C++ helper, this copy calls the port's (`monortm_tpu_torch.native`,
+built from a copy of the same source): the AMERGE walk (`amerge_walk`)
+and the whole-path RFPATH/ALAYER integration (`rfpath_integrate`).  With
+MONORTM_TPU_TORCH_NATIVE=0 it takes the Python walks, the helper's
+oracle.  The JAX package's per-interval `alayer_integrate` branch serves
+only a library without `rfpath_integrate`; the port's always has it, so
+that branch is not copied.
 
 Reference parity (lblatm.f90):
   ATMPTH     :212    driver: slant/horizontal branches, totals, packing
@@ -38,6 +41,7 @@ import math
 import numpy as np
 
 from monortm_tpu_torch import constants as cst
+from monortm_tpu_torch import native
 from monortm_tpu_torch.data import loader
 
 MXMOL = 39
@@ -1193,8 +1197,26 @@ class PathEngine:
 
         # merge zout with zmdl into zpth.  The walk is a scalar
         # recurrence (tolerance snaps cascade into later comparisons) so
-        # it stays a loop (the JAX package's native C++ walk is
-        # bit-identical to it).
+        # it stays a loop; the native helper runs it when on
+        # (bit-identical — same expint/pow and snap order), with the
+        # Python-float-list walk below as the oracle.
+        if native.enabled():
+            (zpth_n, pp_n, tp_n, rf_n, src_im, src_jm, src_a,
+             iphmid, hmid) = native.amerge_walk(
+                 prof.zmdl, prof.pm, prof.tm, prof.rfndxm, zout, hmin,
+                 hmid, tol)
+            n = len(zpth_n)
+            denp = np.empty((MXMOL, n))
+            mod = src_im >= 0
+            if mod.any():
+                denp[:, mod] = prof.denm[:, src_im[mod]]
+            for i in np.nonzero(~mod)[0]:
+                jm, a = int(src_jm[i]), src_a[i]
+                denp[:, i] = expint_vec(prof.denm[:, jm - 1],
+                                        prof.denm[:, jm], a)
+            return (zpth_n, pp_n, tp_n, rf_n, denp, zout, iphmid, h1, h2,
+                    hmid)
+
         immax = prof.immax
         zmdl_l = prof.zmdl.tolist()
         pm_l = prof.pm.tolist()
@@ -1243,8 +1265,8 @@ class PathEngine:
             # reference instead moves HMID to the model altitude in the
             # model-level branch (lblatm.f90:5254) — an intentional,
             # unified deviation bounded by tol (0.5 m) and mirrored in
-            # the JAX package's native walk, so the two implementations
-            # stay bit-identical
+            # the native walk (monortm_native.cpp amerge_walk), so the
+            # two implementations stay bit-identical
             if abs(zpth[-1] - hmid) < tol:
                 if zpth[-1] != hmid:
                     zpth[-1] = hmid
@@ -1468,6 +1490,26 @@ class PathEngine:
                 "rhopsm": np.zeros(ipmax - 1),
                 "amtp": np.zeros((MXMOL, ipmax - 1)),
                 "sp": np.zeros(ipmax - 1)}
+
+        # whole-path native loop (SCALHT + ALAYER + angle bookkeeping in
+        # C++, one call per path)
+        if native.enabled():
+            nsums, sc = native.rfpath_integrate(
+                zpth, pp, tp, rfndxp, denp, self.nmol, sinai, cosai, cpath,
+                self.re, DELTAS, GCAIR, iamt, theta, len_, iphmid)
+            sums["ppsum"] = nsums["ppsum"]
+            sums["tpsum"] = nsums["tpsum"]
+            sums["rhopsm"] = nsums["rhopsm"]
+            sums["sp"] = nsums["sp"]
+            sums["amtp"][:self.nmol] = nsums["amtp_nmol"]
+            s, beta, bendng = sc["s"], sc["beta"], sc["bendng"]
+            phi_j = sc["phi_j"]
+            phi_out = anglea if iorder == -1 else phi_j
+            return {"zpth": zpth, "pp": pp, "tp": tp, "zout": zout,
+                    "iphmid": iphmid, "sums": sums, "range": s,
+                    "beta": beta, "bendng": bendng, "hmid": hmid,
+                    "phi": phi_out}
+
         for j in range(ipmax - 1):
             sh, gamma = r.scalht(zpth[j], zpth[j + 1], rfndxp[j],
                                  rfndxp[j + 1])

@@ -3,9 +3,11 @@ device-ready struct-of-arrays.
 
 A copy of `group`, `resolve`, `pack`, `load_catalog` and their types from
 `monortm_tpu.lines`, so that the port imports nothing of the JAX package.
-`load_catalog` always takes the pure-Python group -> resolve -> pack path
-(the JAX package's native C++ group+resolve is its fast path, and this
-path its fallback and oracle).  The port's models read only a catalog's
+`load_catalog` takes the port's native helper for group + resolve
+(`native.group_resolve_lines`, a copy of the JAX package's C++ source)
+where the lines carry no IBRD data, as the JAX package does, and the
+pure-Python group -> resolve -> pack path, its oracle, where they do or
+where MONORTM_TPU_TORCH_NATIVE=0.  The port's models read only a catalog's
 fields, so a `PackedCatalog` of either package serves;
 tests/test_torch_copies.py holds the two packers equal.
 
@@ -41,6 +43,7 @@ import math
 import numpy as np
 
 from monortm_tpu_torch import constants as cst
+from monortm_tpu_torch import native
 from monortm_tpu_torch.data import loader
 from monortm_tpu_torch.io.tape3 import RawLines, read_tape3
 
@@ -335,5 +338,13 @@ def pack(r: ResolvedLines, tile: int = 128) -> PackedCatalog:
 
 
 def load_catalog(path, v1: float, v2: float, tile: int = 128) -> PackedCatalog:
-    """TAPE3 file -> packed catalog for wavenumber range [v1, v2]."""
-    return pack(resolve(group(read_tape3(path, v1, v2))), tile=tile)
+    """TAPE3 file -> packed catalog for wavenumber range [v1, v2].
+
+    Groups and resolves with the native helper (`native.enabled`) unless
+    species-specific-broadening data is present, whose arrays ride the
+    Python path, as in the JAX package.
+    """
+    raw = read_tape3(path, v1, v2)
+    if len(raw) and not np.any(raw.brd_mol_flg) and native.enabled():
+        return pack(native.group_resolve_lines(raw), tile=tile)
+    return pack(resolve(group(raw)), tile=tile)

@@ -26,8 +26,8 @@ a call, and a profile's bits do not depend on the chunk it is computed
 in.  A model builds the dense tiles on the first call of the dense
 engine, so a float32 model that runs only the kernels never holds them.
 
-Not ported: cross-sections (ops/xsec.py; `od_xsec` only adds an OD made
-elsewhere), meshes.
+Cross-sections are host numpy (`ops.xsec`, the pipeline's `xsec-prep`
+stage); `od_xsec` adds their OD to the total.  Not ported: meshes.
 """
 
 from __future__ import annotations
@@ -472,8 +472,8 @@ class ODModel:
         in float32, "dense" in float64).
         od_xsec: an optional [..., L, W] tensor on the model's device added
         to the total last, as the JAX package adds its host-made
-        cross-section OD (the pipeline passes the TES cloud file's OD
-        there; cross-sections themselves are not ported).
+        cross-section OD (the pipeline passes `ops.xsec.xsec_od`'s OD
+        plus the TES cloud file's there).
         """
         dtype = self.dtype
         engine = self._engine(engine)

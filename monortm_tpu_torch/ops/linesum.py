@@ -131,12 +131,64 @@ class _SdVoigt64(torch.autograd.Function):
         return tuple(d.to(g.dtype) for d in gx) + (None,)
 
 
+def _lorentz_partials(k, hw):
+    """(r, dk/dhw) of a Lorentz shape k = hw/pi / (hw^2 + dd^2) in closed
+    form from its value, as the adjoint kernel takes them
+    (`lorentz_partials`, csrc/linesum_math.cuh): r = k / (hw/pi) and
+    dk/dhw = (1/pi - 2 hw k) r, the bracket rounded once as the kernel's
+    fused multiply-add does; dk/ddd = -2 dd k r."""
+    hw_pi = hw * _INV_PI
+    r = k * torch.where(hw_pi > 0.0, rdiv(1.0, hw_pi), 0.0)
+    bracket = (_INV_PI - (2.0 * hw).double() * k.double()).float()
+    return r, bracket * r
+
+
+class _Lorentz(torch.autograd.Function):
+    """A Lorentz lane's shape hw/pi / (hw^2 + dd^2) of float32 operands:
+    its value as `_contrib_voigt` forms it, bit for bit, and its partials
+    in closed form (`_lorentz_partials`).  Float32 reverse mode through
+    the divide loses digits where a shape and its pedestal cancel, in the
+    wings near 25 cm^-1."""
+
+    @staticmethod
+    def forward(ctx, dd, hw):
+        k = hw * _INV_PI / (hw * hw + dd * dd)
+        ctx.save_for_backward(dd, hw, k)
+        return k
+
+    @staticmethod
+    def backward(ctx, g):
+        dd, hw, k = ctx.saved_tensors
+        r, k_dh = _lorentz_partials(k, hw)
+        return ((g * (-2.0 * dd * k * r)).sum_to_size(dd.shape),
+                (g * k_dh).sum_to_size(hw.shape))
+
+
+class _Pedestal(torch.autograd.Function):
+    """A Lorentz lane's pedestal xlorentz(25/hw)/hw of float32 hw: its
+    value as `_contrib_voigt` forms it, bit for bit, and its partial by hw
+    in closed form, that of the Lorentz shape at dd = 25 cm^-1 (the same
+    function of hw) from the pedestal's value."""
+
+    @staticmethod
+    def forward(ctx, hw):
+        k3 = xlorentz(rdiv(DELTNU_CUT, hw)) / hw
+        ctx.save_for_backward(hw, k3)
+        return k3
+
+    @staticmethod
+    def backward(ctx, g):
+        hw, k3 = ctx.saved_tensors
+        return g * _lorentz_partials(k3, hw)[1]
+
+
 def _contrib_voigt(wn_hi, wn_lo, g, fl, chi_fn, f32_fallback=False,
                    sd64=False):
     """One [L, wt, nt] block of the Pallas `_kernel` (:143-228).
-    f32_fallback: see `ops.voigt.sdvoigt`.  sd64: float32 SD-Voigt lanes
-    take their partials in float64 (`_SdVoigt64`); values are
-    unchanged."""
+    f32_fallback: see `ops.voigt.sdvoigt`.  sd64: float32 lanes take the
+    adjoint kernel's partials, SD-Voigt lanes' in float64 (`_SdVoigt64`)
+    and Lorentz lanes' and their pedestal's in closed form (`_Lorentz`,
+    `_Pedestal`); values are unchanged."""
     nu_hi, nu_lo, sdep = g["nu_hi"], g["nu_lo"], g["sdep"]
     shift, hw, ad = g["shift"], g["hw"], g["ad"]
     xnu = nu_hi + (nu_lo + shift)
@@ -150,7 +202,9 @@ def _contrib_voigt(wn_hi, wn_lo, g, fl, chi_fn, f32_fallback=False,
     # Lorentz switch (modm.f90:419-431): far wings or zeta > 0.99
     zlor = hw * float(np.float32(0.01)) > ad * float(np.float32(0.99))
     use_lor = (torch.abs(d1) > 100.0 * ad) | zlor
-    k3l = xlorentz(rdiv(DELTNU_CUT, hw)) / hw
+    kernel_partials = sd64 and hw.dtype == torch.float32
+    k3l = (_Pedestal.apply(hw) if kernel_partials
+           else xlorentz(rdiv(DELTNU_CUT, hw)) / hw)
     k3 = torch.where(use_lor, k3l, g["k3v"])
 
     hw_pi = hw * _INV_PI
@@ -158,11 +212,13 @@ def _contrib_voigt(wn_hi, wn_lo, g, fl, chi_fn, f32_fallback=False,
 
     def K(dd):
         sdep_b = torch.broadcast_to(sdep, dd.shape)
-        if sd64 and dd.dtype == torch.float32:
+        if kernel_partials:
             dv = _SdVoigt64.apply(dd, hw, ad, sdep_b)
+            lor = _Lorentz.apply(dd, hw)
         else:
             dv = sdvoigt(dd, hw, ad, sdep_b, f32_fallback=f32_fallback)
-        return torch.where(use_lor, hw_pi / (pi_hw2 + dd * dd), dv)
+            lor = hw_pi / (pi_hw2 + dd * dd)
+        return torch.where(use_lor, lor, dv)
 
     sls = _branch_trees(d1, dsum, K(d1), K(dsum), k3, g["ya"], g["yb"], fl,
                         within, mirror, chi_fn)
@@ -253,7 +309,8 @@ def line_sum_bwd_plain(pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
     """Plain PyTorch version of the VOIGT=true adjoint kernel: the seven
     cotangents (PER_LN order) for a cotangent g [L, Wp, n_mol].  As in the
     kernel, a float32 SD-Voigt lane's partials are taken in float64
-    (`_SdVoigt64`); the Lorentz lanes' are float32 reverse mode.
+    (`_SdVoigt64`) and a Lorentz lane's and its pedestal's in closed form
+    from their values (`_Lorentz`, `_Pedestal`).
     f32_fallback: see `ops.voigt.sdvoigt` (for float64 operands, a
     reference of the float32 adjoint)."""
     contrib = functools.partial(_contrib_voigt, f32_fallback=f32_fallback,

@@ -26,8 +26,12 @@ Nothing moves to the CPU behind the caller's back: a run on "cuda"
 without a card raises, and a kernel that fails to build or launch fails
 the run.
 
-Not ported (ROADMAP): cross-sections (IXSECT >= 1 raises), meshes and
-multi-controller runs.
+Cross-sections (IXSECT >= 1) are host numpy, as in the JAX package: the
+`xsec-prep` stage computes every profile's cross-section OD up front
+(`ops.xsec.xsec_od`, a thread pool over profiles), and the device adds it
+to the total.
+
+Not ported (ROADMAP A11): meshes and multi-controller runs.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import collections
 import dataclasses
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any
 
@@ -44,11 +49,13 @@ import torch
 
 from monortm_tpu_torch import __version__
 from monortm_tpu_torch import constants as cst
-from monortm_tpu_torch.atmos.tape5_atm import profiles_from_tape5_iter
+from monortm_tpu_torch.atmos.tape5_atm import (profiles_from_tape5,
+                                                profiles_from_tape5_iter)
 from monortm_tpu_torch.convert import state_from_numpy
 from monortm_tpu_torch.data.loader import HMOLC
 from monortm_tpu_torch.io import emis as emis_io
 from monortm_tpu_torch.io.cldod import cloud_od_on_grid
+from monortm_tpu_torch.io.fscdxs import read_fscdxs, read_xs_file
 from monortm_tpu_torch.io.output import (OutputWriter, ProfileOutput,
                                          write_netcdf)
 from monortm_tpu_torch.io.profin import read_profiles
@@ -62,6 +69,7 @@ from monortm_tpu_torch.models.rt import RTParts, RTResult
 from monortm_tpu_torch.models.rt import combine_boundary_np, rt_parts
 from monortm_tpu_torch.models.rt import lsum as _lsum
 from monortm_tpu_torch.ops.lineshape import LineConfig
+from monortm_tpu_torch.ops.xsec import xsec_od
 from monortm_tpu_torch.types import HostState, irt_from_angle
 from monortm_tpu_torch.utils.trace import StageTimer, profile_trace
 
@@ -323,10 +331,6 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
     timer = StageTimer()
     with timer.stage("tape5-parse"):
         iatm, ixsect, nprof = count_profiles(filein, fileprof)
-        if ixsect >= 1:
-            raise NotImplementedError(
-                "IXSECT >= 1: cross-sections (ops/xsec.py, od_xsec) are not "
-                "ported to monortm_tpu_torch yet")
         rd = Tape5Reader(filein)
         cfg = rd.read_block()
     wn = cfg.wn
@@ -347,11 +351,15 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
     # profiles: IATM=0 parses the layer file (fast); IATM=1 streams the
     # LBLATM-equivalent layering out of the producer (a worker pool when
     # there are many profiles) so the device starts on early profiles
-    # while later ones are still being layered
+    # while later ones are still being layered, except in an IXSECT run,
+    # whose thread-pooled xsec pre-pass needs the full list
     profiles = None
     if iatm == 0:
         with timer.stage("profiles+layering"):
-            profiles = read_profiles(fileprof)
+            profiles = read_profiles(fileprof, ixsect=ixsect)
+    elif cfg.ixsect >= 1:
+        with timer.stage("profiles+layering"):
+            profiles = profiles_from_tape5(filein, cfg, workers=workers)
 
     # TAPE7 (IPUNCH=1 on record 3.1, lblatm.f90:1264-1340): the layering
     # output in MONORTM_PROF.IN-compatible form, collected by the
@@ -392,14 +400,52 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
         log.write(f"    {HMOLC[m-1]:>6s} = {mol_counts[m]:6d}\n")
     log.write(f"0 TOTAL NUMBER OF LINES ={catalog.n_lines:8d}\n")
 
-    # ---- host prep per profile (scaling, columns, cloud file) ----------
+    # ---- host prep per profile (scaling, columns, xsec OD) ----------
     cld_file = filein.parent / "in_lblrtm_cld"
+
+    # cross-section OD prep is the one per-profile host stage with real
+    # compute (file reads + pressure convolutions); fan it out across a
+    # thread pool up front — the index/spectra caches are shared
+    # (monortm.f90:492-532 runs this serially per profile)
+    xsec_results: dict[int, Any] = {}
+    xs_profiles = ([i for i, prof in enumerate(profiles)
+                    if prof.xamnt is not None]
+                   if profiles is not None and cfg.ixsect >= 1 else [])
+    if xs_profiles:
+        fdir = filein.parent
+        idx_cache: dict[tuple, Any] = {}
+        spectra: dict[str, Any] = {}
+
+        def _prep_xsec(i):
+            prof = profiles[i]
+            key = tuple(prof.xsname)
+            if key not in idx_cache:
+                idx_cache[key] = read_fscdxs(fdir / "FSCDXS", prof.xsname,
+                                             float(wn.min()),
+                                             float(wn.max()))
+            idx = idx_cache[key]
+            for regs in idx.regions.values():
+                for reg in regs:
+                    for f in reg.files:
+                        if f not in spectra:
+                            spectra[f] = read_xs_file(fdir / "xs" / f)
+            st = prof.state
+            return i, xsec_od(idx, spectra, wn, st.p, st.t, prof.xamnt)
+
+        with timer.stage("xsec-prep"):
+            # warm the caches serially on the first profile, then fan out
+            xsec_results.update([_prep_xsec(xs_profiles[0])])
+            rest = xs_profiles[1:]
+            if rest:
+                with ThreadPoolExecutor(min(8, len(rest))) as ex:
+                    xsec_results.update(ex.map(_prep_xsec, rest))
+
     prepped: list = []
 
     def prep_profile(npr0, prof):
-        """Per-profile host prep (LOG tables, scaling, columns) — the
-        reference's per-profile preamble (monortm.f90:369-551).  Called
-        by the producer in input order."""
+        """Per-profile host prep (LOG tables, scaling, columns, xsec
+        OD) — the reference's per-profile preamble (monortm.f90:369-551).
+        Called by the producer in input order."""
         st, meta = prof.state, prof.meta
         wkl = st.wkl
         log.write(f"1 PROFILE {npr0}\n")
@@ -426,11 +472,15 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
             _log_layer_table(log, st.p, st.t, wkl, st.wbrodl, meta.nmol)
         pwv, clw_col = integr(wkl, st.clw)
 
+        # cross-section molecules (IATM=0 layer amounts;
+        # monortm.f90:492-532 + MONORTM_XSEC_SUB), prepared above
+        od_xsec = xsec_results.get(npr0 - 1)
+
         # optional TES cloud OD file (see io/cldod.py), added to the
-        # total on the device as the JAX package adds it (od_xsec)
-        od_xsec = None
+        # cross-section OD, which the device adds to the total
         if cld_file.exists():
-            od_xsec = cloud_od_on_grid(cld_file, wn, st.t.shape[-1])
+            extra = cloud_od_on_grid(cld_file, wn, st.t.shape[-1])
+            od_xsec = extra if od_xsec is None else od_xsec + extra
 
         irt = irt_from_angle(meta.angle)
         tbound = cfg.tbound

@@ -3,7 +3,10 @@
 Copies of `monortm_tpu.testing.synthetic_catalog_mw`, `synthetic_state`
 and `make_minimal_rundir` on the port's own catalog packer and TAPE3
 writer: the same numpy code, drawn from the same `default_rng(seed)` in
-the same order, so both packages see identical inputs.
+the same order, so both packages see identical inputs.  `make_xsec_rundir`
+writes an IATM=0, IXSECT=1 rundir inside the synthetic cross-section band
+(`write_xsec_data`, the FSCDXS and xs/ files of tests/test_xsec.py's
+form, widened to two species).
 """
 
 from __future__ import annotations
@@ -146,3 +149,128 @@ def synthetic_state(nlay: int = 26, batch: int | None = None,
     host = SimpleNamespace(p=b(p), t=b(t), tz=b(tz), wkl=b(wkl),
                            wbrodl=b(wbrodl), clw=b(clw))
     return state_from_numpy(host, device, dtype)
+
+
+# the synthetic cross-section band (tests/test_xsec.py's), its species
+# (name -> centre and width of a Gaussian bump, cm^-1) and their columns
+# (molec/cm^2) in make_xsec_rundir; the catalog's lines are moved by
+# XS_LINE_SHIFT into the band
+XS_BAND = (780.0, 820.0)
+XS_SPECIES = {"CCL4": (800.0, 8.0), "F11": (806.0, 5.0)}
+XS_COLUMNS = {"CCL4": 1.0e15, "F11": 2.5e15}
+XS_LINE_SHIFT = 770.0
+
+
+def write_xsec_data(dirpath, species=tuple(XS_SPECIES)) -> None:
+    """FSCDXS and one xs/ file per species and temperature (216 K at 170
+    Torr, 296 K at 760 Torr): cross-sections on 401 points over XS_BAND,
+    written as tests/test_xsec.py writes them."""
+    from pathlib import Path
+
+    d = Path(dirpath)
+    (d / "xs").mkdir(parents=True, exist_ok=True)
+    v1, v2 = XS_BAND
+    npts = 401
+    vv = np.linspace(v1, v2, npts)
+    recs = []
+    for name in species:
+        centre, width = XS_SPECIES[name]
+        files = []
+        for temp, pres in ((216.0, 170.0), (296.0, 760.0)):
+            amp = 1.0e-18 * (1.0 + (296.0 - temp) / 296.0)
+            data = amp * np.exp(-((vv - centre) / width) ** 2)
+            fn = f"{name}_T{temp:.0f}"
+            hdr = (f"{name:<10s}{v1:10.4f}{v2:10.4f}{npts:10d}{temp:10.3g}"
+                   f"{pres:10.3g}{1.0:10.3g}" + " " * 20 + "      TORR")
+            rows = [hdr] + [" ".join(f"{x:12.5e}" for x in data[i:i + 5])
+                            for i in range(0, npts, 5)]
+            (d / "xs" / fn).write_text("\n".join(rows) + "\n")
+            files.append(fn)
+        recs.append(f"{name:<10s}{v1:10.4f}{v2:10.4f}{0.1:10.8f}"
+                    f"{len(files):5d}" + " " * 5 + f"{91:5d}N" + " " * 4
+                    + "".join(f"{f:<10s}" for f in files))
+    (d / "FSCDXS").write_text("\n".join([" header", " header2", *recs, "%"])
+                              + "\n")
+
+
+def xsec_tape3_lines(n_h2o: int = 64, n_o2: int = 48) -> RawLines:
+    """synthetic_catalog_mw's lines moved by XS_LINE_SHIFT into the
+    cross-section band (line-coupling rows, whose wavenumber field holds a
+    coefficient, stay), the first N2 line put first: so every 250-record
+    panel of a TAPE3 of bench's 3074 lines ends on a line, not on a
+    coupling record, which the reader would skip the panel for."""
+    raw = synthetic_catalog_mw(n_h2o=n_h2o, n_o2=n_o2, raw_lines=True)
+    order = np.r_[len(raw) - 2, :len(raw) - 2, len(raw) - 1]
+    raw = RawLines(**{f: getattr(raw, f)[order]
+                      for f in RawLines.__dataclass_fields__})
+    raw.vnu[raw.iflg >= 0] += XS_LINE_SHIFT
+    return raw
+
+
+def xsec_block(names, xamnt, p, t) -> str:
+    """The cross-section block that follows a profile in MONORTM_PROF.IN
+    (monortm.f90:492-532, as `io.profin` reads it): IXMOLS, the names
+    (7A10), the header (1X,I1,I3,I5,F10.2) and per layer a P/T record and
+    the amounts (7E15.7)."""
+    n, nlay = xamnt.shape
+    rows = [f"{n:5d}", "".join(f"{m:<10s}" for m in names),
+            f" {0:1d}{nlay:3d}{n:5d}{0.0:10.2f}"]
+    for l in range(nlay):
+        rows.append(f"{p[l]:15.7E}{t[l]:10.2f}")
+        rows.append("".join(f"{x:15.7E}" for x in xamnt[:, l]))
+    return "\n".join(rows) + "\n"
+
+
+def make_xsec_rundir(dirpath, nprof: int = 1, nlay: int = 4, nwn: int = 16,
+                     n_h2o: int = 64, n_o2: int = 48,
+                     species=tuple(XS_SPECIES), keep: int | None = None,
+                     wn_step: int = 1) -> None:
+    """An IATM=0, IXSECT=1 rundir: MONORTM.IN listing every `wn_step`-th
+    of `nwn` wavenumbers over 781-819 cm^-1, MONORTM_PROF.IN with the
+    first `keep`
+    (default: all) profiles of synthetic_state(nlay, batch=nprof), each
+    followed by its cross-section block (XS_COLUMNS spread as the layers'
+    pressure), the TAPE3 of xsec_tape3_lines, and write_xsec_data's
+    files."""
+    from pathlib import Path
+    from monortm_tpu_torch.io.profin import Profile
+    from monortm_tpu_torch.io.tape3 import write_tape3
+    from monortm_tpu_torch.io.tape7 import write_tape7
+    from monortm_tpu_torch.types import HostState, ProfileMeta
+
+    d = Path(dirpath)
+    d.mkdir(parents=True, exist_ok=True)
+    write_xsec_data(d, species)
+    write_tape3(d / "TAPE3", xsec_tape3_lines(n_h2o, n_o2))
+    wn = np.linspace(XS_BAND[0] + 1.0, XS_BAND[1] - 1.0, nwn)[::wn_step]
+    rec12 = [" "] * 70
+    for pos in (4, 14, 24, 39, 69):      # HIRAC CNTNM EMIT PLOT XSECT
+        rec12[pos] = "1"
+    rec12[49] = "0"                      # IATM
+    (d / "MONORTM.IN").write_text(
+        "$ synthetic IXSECT=1 run\n" + "".join(rec12) + "\n"
+        + f"{-wn[0]:10.3E}{wn[-1]:10.3E}" + " 0.000E+00" * 6
+        + "    0      0.000E+00    0\n"
+        + f"{len(wn)}\n" + "".join(f"{w:19.13f}\n" for w in wn)
+        + "     0.    1.0       0.000E+00 0.000E+00 0.000E+00 0.000E+00 "
+        "0.000E+00\n%%%%\n")
+    st = synthetic_state(nlay=nlay, batch=nprof, device="cpu",
+                         dtype=torch.float64)
+    pz = np.geomspace(1013.0, 45.0, nlay + 1)
+    altz = -7.0 * np.log(pz / 1013.0)
+    part = d / "profile.tape7"
+    text = []
+    for i in range(nprof if keep is None else keep):
+        host = HostState(**{f: getattr(st, f)[i].numpy()
+                            for f in ("p", "t", "tz", "wkl", "wbrodl",
+                                      "clw")})
+        prof = Profile(state=host, meta=ProfileMeta(
+            nmol=22, angle=0.0, h1=0.0, h2=float(altz[-1]), altz=altz,
+            pz=pz), hmod="SYNTHETIC")
+        write_tape7(part, [prof], xid="xsec")
+        share = host.p / host.p.sum()
+        xamnt = np.stack([XS_COLUMNS[m] * share for m in species])
+        text.append(part.read_text()
+                    + xsec_block(species, xamnt, host.p, host.t))
+    part.unlink()
+    (d / "MONORTM_PROF.IN").write_text("".join(text))

@@ -29,25 +29,23 @@ PyTorch divides twice and keeps it.  So d/dwkl is held to JAX at
 atol=1e-3 * max, and d/dwbrodl to central differences of the port's own
 forward instead.
 
-- (c) the plain float32 adjoint `line_sum_bwd_plain` takes an SD-Voigt
-  lane's partials in float64 (as the adjoint kernel does): at 0.02 hPa
-  with speed dependence on, the SD-Voigt lanes' share of each cotangent
-  (the cotangent less that of the Lorentz lanes, which keep their float32
-  reverse mode) is within 1.5e-6 * max of the same share of the plain
-  adjoint run in float64 (with float32's branch, f32_fallback=True), the
-  limit the kernel meets (chip_smoke.py phase 5); the float32 reverse
-  mode's share of dshift, dhw and dad is off by more than 1e-3 * max.
-  The Lorentz lanes' own float32 reverse mode is off float64 by up to
-  2.6e-6 * max in dhw on this state (wing lanes near 25 cm^-1, where the
-  shape and its pedestal cancel), as it was: so the whole dhw is not
-  within 1.5e-6 * max, since (d) keeps those lanes bitwise.  stild's cotangent is the
-  float32 value of the line shape, which near vacuum is itself off
-  float64 by ~2.7e-4 * max here (the forward's documented looser case), so it
-  is held bitwise to the float32 reverse mode, and within 1e-3 * max of
-  float64 (the forward's limit there, tests/test_torch_linesum.py);
-- (d) where a lane is Lorentz nothing changes: every cotangent at 1013
-  hPa (every lane Lorentz), and stild, k3v, ya and yb at 20 and 0.02 hPa,
-  are bitwise the float32 reverse mode's.
+- (c) the plain float32 adjoint `line_sum_bwd_plain` takes the adjoint
+  kernel's partials: an SD-Voigt lane's in float64, a Lorentz lane's and
+  its pedestal's in closed form from their values (`lorentz_partials`,
+  csrc/linesum_math.cuh).  At 0.02 hPa with speed dependence on, the
+  SD-Voigt lanes' share of each cotangent (the cotangent less that of the
+  Lorentz lanes) is within 1.5e-6 * max of the same share of the plain
+  adjoint run in float64 (with float32's branch, f32_fallback=True), while
+  float32 reverse mode's share of dshift, dhw and dad is off by more than
+  1e-3 * max;
+- (d) at 1013, 20 and 0.02 hPa (speed dependence on) every cotangent but
+  stild's, whole, is within 1.5e-6 * max of float64, the limit the kernel
+  meets (chip_smoke.py phase 5), and the block's forward values are
+  bitwise those of the forward-only sum.  stild's cotangent is the float32
+  value of the line shape, the forward's own: it is bitwise the float32
+  reverse mode's and held to float64 at the forward's tolerance
+  (tests/test_torch_linesum.py: rtol 2e-5, atol 2e-6 * max, and 1e-3 *
+  max near vacuum with speed dependence on, where it reads ~2.7e-4 * max).
 """
 
 import dataclasses as dc
@@ -68,7 +66,8 @@ from monortm_tpu.types import LayerState as JLayerState
 from monortm_tpu_torch.convert import state_from_numpy
 from monortm_tpu_torch.models.od import ODModel
 from monortm_tpu_torch.ops import linesum
-from monortm_tpu_torch.ops.linesum import (PER_LN, _contrib_voigt,
+from monortm_tpu_torch.ops.linesum import (FLAGS, PER_L, PER_LN,
+                                           _contrib_voigt,
                                            line_sum_bwd_plain, precompute,
                                            reverse_map, sweep_bwd_plain)
 from monortm_tpu_torch.ops.tips import tips_scor
@@ -224,10 +223,11 @@ def test_broadening_gradient_matches_central_differences(engine, p_const):
 def _plain_adjoints(p_hpa):
     """The seven cotangents, each a dict, for 3 layers at p_hpa with speed
     dependence on and a seeded cotangent: "new", the float32 plain
-    adjoint; "ref", its float64 reference; "old", the float32 reverse mode
-    without float64 partials; "lor32" / "lor64", the float32 reverse mode
-    and its float64 reference with the SD-Voigt shape's own partials cut
-    (the Lorentz lanes' share, and the operands')."""
+    adjoint; "ref", its float64 reference; "old", float32 reverse mode;
+    "lor_new" / "lor_old" / "lor64", the Lorentz lanes' share (the
+    SD-Voigt shape's own partials cut) of the first three; and "blocks",
+    the [L, wt, nt] values of each candidate block with the adjoint's
+    partials and without."""
     m = ODModel(WN, float(WN[1] - WN[0]),
                 synthetic_catalog_mw(n_h2o=150, n_o2=24, tile=128), nmol=22,
                 device="cpu")
@@ -246,6 +246,7 @@ def _plain_adjoints(p_hpa):
                    else {k: x.double() for k, x in v.items()})
     pre64 = {k: d(v) for k, v in pre.items()}
     args64 = (args[0], d(args[1]), d(args[2])) + args[3:]
+    new = functools.partial(_contrib_voigt, sd64=True)
     out = {"new": dict(zip(PER_LN, line_sum_bwd_plain(pre, *args, g))),
            "ref": dict(zip(PER_LN, line_sum_bwd_plain(
                pre64, *args64, d(g), f32_fallback=True))),
@@ -253,19 +254,35 @@ def _plain_adjoints(p_hpa):
     sd = linesum.sdvoigt
     cut = lambda *a, **k: sd(*(x.detach() for x in a), **k)
     with mock.patch.object(linesum, "sdvoigt", cut):
-        out["lor32"] = sweep_bwd_plain(_contrib_voigt, pre, *args, g)
+        out["lor_old"] = sweep_bwd_plain(_contrib_voigt, pre, *args, g)
         out["lor64"] = sweep_bwd_plain(
             functools.partial(_contrib_voigt, f32_fallback=True), pre64,
             *args64, d(g))
+    with mock.patch.object(linesum._SdVoigt64, "apply", cut):
+        out["lor_new"] = sweep_bwd_plain(new, pre, *args, g)
+    blocks = []
+    mol, wh, wl, cm, cv, nt, wt = args[:7]
+    for i in range(cm.shape[0]):
+        w = slice(i * wt, (i + 1) * wt)
+        for j in range(cm.shape[1]):
+            if not cv[i, j]:
+                continue
+            sl = slice(int(cm[i, j]) * nt, (int(cm[i, j]) + 1) * nt)
+            blk = {k: pre[k][sl][None, None, :] for k in PER_L}
+            blk.update({k: pre[k][:, sl][:, None, :] for k in PER_LN})
+            fl = {k: pre["flags"][k][sl][None, None, :] > 0.5 for k in FLAGS}
+            blocks.append(tuple(
+                f(wh[w][None, :, None], wl[w][None, :, None], blk, fl, None)
+                for f in (new, _contrib_voigt)))
+    out["blocks"] = blocks
     return out
 
 
 @pytest.mark.parametrize("name", PER_LN)
 def test_plain_adjoint_near_vacuum_sdvoigt_share_matches_float64(name):
     """Each cotangent's SD-Voigt share (the cotangent less the Lorentz
-    lanes' share) against float64's at 1.5e-6 * max|ref|; the Lorentz
-    lanes keep their float32 reverse mode (test below), whose own error
-    against float64 stays what it was."""
+    lanes' share) against float64's at 1.5e-6 * max|ref|; float32 reverse
+    mode's share of dshift, dhw and dad is far off."""
     c = _plain_adjoints(0.02)
     a, b = c["new"][name], c["ref"][name]
     assert a.dtype == torch.float32 and torch.isfinite(a).all()
@@ -276,23 +293,36 @@ def test_plain_adjoint_near_vacuum_sdvoigt_share_matches_float64(name):
         assert float((a.double() - b).abs().max()) / scale < 1e-3
         return
     share = lambda x, lor: x.double() - lor.double()
-    err = float((share(a, c["lor32"][name])
+    err = float((share(a, c["lor_new"][name])
                  - share(b, c["lor64"][name])).abs().max()) / scale
     assert err <= 1.5e-6, f"d{name}: {err:.3e} of max"
     if name in ("shift", "hw", "ad"):
         # the float32 reverse mode's share is far off here: the repair
         # matters
-        old = float((share(c["old"][name], c["lor32"][name])
+        old = float((share(c["old"][name], c["lor_old"][name])
                      - share(b, c["lor64"][name])).abs().max()) / scale
         assert old > 1e-3, f"d{name}: {old:.3e} of max"
 
 
 @pytest.mark.parametrize("p_hpa", [1013.0, 20.0, 0.02])
-def test_plain_adjoint_lorentz_lanes_unchanged(p_hpa):
-    """Every cotangent at 1013 hPa (every lane Lorentz), and at 20 and
-    0.02 hPa stild, k3v, ya and yb, which take no partial of an SD-Voigt
-    shape, are bitwise the float32 reverse mode's."""
+def test_plain_adjoint_matches_float64(p_hpa):
+    """Every cotangent of the plain float32 adjoint but stild's, whole,
+    within 1.5e-6 * max|ref| of its float64 reference; stild's bitwise
+    float32 reverse mode's and within the forward's tolerance of float64;
+    the blocks' forward values bitwise those of the forward-only sum."""
     c = _plain_adjoints(p_hpa)
-    names = PER_LN if p_hpa == 1013.0 else ("stild", "k3v", "ya", "yb")
-    for name in names:
-        assert torch.equal(c["new"][name], c["old"][name]), name
+    for name in PER_LN:
+        a, b = c["new"][name], c["ref"][name]
+        assert a.dtype == torch.float32 and torch.isfinite(a).all(), name
+        scale = float(b.abs().max())
+        if name == "stild":
+            assert torch.equal(a, c["old"][name])
+            atol = 1e-3 if p_hpa == 0.02 else 2e-6
+            np.testing.assert_allclose(a.double().numpy(), b.numpy(),
+                                       rtol=2e-5, atol=atol * scale)
+            continue
+        err = float((a.double() - b).abs().max()) / max(scale, 1e-300)
+        assert err <= 1.5e-6, f"d{name}: {err:.3e} of max"
+    assert c["blocks"]
+    for with_partials, forward_only in c["blocks"]:
+        assert torch.equal(with_partials, forward_only)

@@ -86,6 +86,31 @@ def test_group_resolve_match_on_raw_lines():
                                       err_msg=f)
 
 
+def test_native_source_byte_identical():
+    """The port's native helper builds from a copy of the JAX package's
+    C++ source, byte for byte."""
+    assert _sha(ROOT / "monortm_tpu_torch" / "native" / "monortm_native.cpp") \
+        == _sha(ROOT / "monortm_tpu" / "native" / "monortm_native.cpp")
+
+
+def _code(path):
+    """A module's text after its docstring, with the imports of its own
+    package's modules pointed at monortm_tpu."""
+    text = path.read_text()
+    body = text[text.index('"""', 3) + 3:]
+    return body.replace("monortm_tpu_torch", "monortm_tpu")
+
+
+def test_xsec_code_byte_identical():
+    """`ops/xsec.py`'s code is the JAX package's, byte for byte, but for
+    the imports, which name the port's `constants` and `io.fscdxs`."""
+    mine = ROOT / "monortm_tpu_torch" / "ops" / "xsec.py"
+    ref = ROOT / "monortm_tpu" / "ops" / "xsec.py"
+    assert _code(mine) == _code(ref)
+    assert "from monortm_tpu_torch import constants" in mine.read_text()
+    assert "from monortm_tpu_torch.io.fscdxs import" in mine.read_text()
+
+
 _IMPORT = re.compile(r"^\s*(from|import)\s+monortm_tpu(\.|\s|$)", re.M)
 
 

@@ -126,7 +126,7 @@ PIPELINE_MODULES = (
     "io/cldod.py", "io/tape7.py", "io/fscdxs.py", "io/output.py",
     "atmos/layering.py", "atmos/tape5_atm.py", "utils/trace.py",
     "utils/__init__.py", "models/rt.py", "models/od.py",
-    "ops/continuum.py")
+    "ops/continuum.py", "ops/xsec.py", "native/__init__.py")
 
 
 def test_cli_as_main_never_imports_jax(tmp_path):

@@ -5,12 +5,10 @@ host modules (io.tape5, io.profin, io.tape3, io.tape7, io.output,
 io.emis, io.cldod, io.fscdxs, lines.load_catalog, atmos.*,
 ContinuumFactors.from_icntnm, models.rt.combine_boundary_np).  Each is
 run here beside its original on the same inputs: parsed fields and
-arrays equal, written files byte for byte equal.  The layering is the
-one place where the JAX package may take another path (its native C++
-helper, when the library loads): against it the port's Python walk
-agrees at rtol 1e-12 (the native walk sums in another order; the
-broadening column, a difference of two near-equal columns, loses most),
-and with the helper switched off the arrays are equal.
+arrays equal, written files byte for byte equal.  The layering runs in
+both packages through a native C++ helper built from the same source by
+default, and through their Python walks with the helpers switched off:
+either way the arrays are equal.
 """
 
 import dataclasses
@@ -314,16 +312,13 @@ def test_combine_boundary_np_equal(irt):
 def test_atmpth_equal(case, monkeypatch):
     rest, v1, v2 = ((CASE1_REST, 0.2, 1.2) if case == "case1"
                     else (USER_REST, 0.5, 1.0))
-    mine = atmpth(rest, v1, v2)
-    # against the JAX package's native helper, where its library loads
-    ref = j_atmpth(rest, v1, v2)
-    for f in STATE_FIELDS:
-        np.testing.assert_allclose(getattr(mine.state, f),
-                                   getattr(ref.state, f), rtol=1e-12,
-                                   atol=0, err_msg=f)
-    # against its Python walk: equal
+    # the default paths, each package's native helper: equal
+    assert j_native.available()
+    _same_profile(atmpth(rest, v1, v2), j_atmpth(rest, v1, v2))
+    # both helpers off, the Python walks: equal
+    monkeypatch.setenv("MONORTM_TPU_TORCH_NATIVE", "0")
     monkeypatch.setattr(j_native, "_LIB", False)
-    _same_profile(mine, j_atmpth(rest, v1, v2))
+    _same_profile(atmpth(rest, v1, v2), j_atmpth(rest, v1, v2))
 
 
 def test_boundary_spectrum_and_cloud_file_equal(tmp_path):

@@ -335,3 +335,58 @@ def test_no_kernel_for_other_devices():
     with pytest.raises(RuntimeError, match="no kernel"):
         VOIGT_KERNEL(pre, torch.ones(n, dtype=torch.int64, device="meta"),
                      wn, wn, cm, cm, 128, 128, 22)
+
+
+@pytest.mark.parametrize("engine,j_engine,j_pallas",
+                         [("full", "pallas", True),
+                          ("lorentz", "lorentz-xla", True),
+                          ("dense", None, False)])
+def test_chi_fn_hook_matches_jax(engine, j_engine, j_pallas):
+    """LineConfig.chi_fn, the CO2 chi hook (modm.f90:1253-1290, identity
+    in the reference), on CPU tensors: with tests/test_pallas.py's
+    test_chi_fn_hook catalog (a third of the H2O lines made CO2) and chi
+    = 0.5, the port's line OD by molecule agrees with the JAX engine's
+    (the Pallas kernel in interpret mode, the all-Lorentz XLA engine, the
+    dense XLA engine) at the forward tolerance; its CO2 OD is half of
+    its own without the hook (rtol 1e-6) and every other molecule
+    bitwise unchanged.  (On CUDA tensors the line-sum kernels refuse the
+    hook: chip_smoke.py phase 3.)"""
+    import dataclasses as dc
+    from monortm_tpu import lines as j_lines
+    from monortm_tpu_torch import lines
+    from monortm_tpu_torch.convert import state_from_numpy
+
+    def co2_catalog(make, pkg):
+        raw = make(n_h2o=48, n_o2=16, raw_lines=True)
+        m, iso = raw.mol % 100, raw.mol // 100
+        sel = (m == 1) & (np.arange(len(raw.mol)) % 3 == 0)
+        raw.mol[sel] = (2 + 100 * iso[sel]).astype(np.int32)
+        return pkg.pack(pkg.resolve(pkg.group(raw)), tile=128)
+
+    wn = np.linspace(0.4, 50.0, 64)
+    dv = float(wn[1] - wn[0])
+    st = synthetic_state(nlay=3)
+    half = lambda d: d * 0.0 + 0.5
+
+    j_cat = co2_catalog(j_catalog, j_lines)
+    ref = np.asarray(JODModel(
+        wn, dvset=dv, catalog=j_cat, nmol=22, dtype=jnp.float32, wn_tile=32,
+        line_tile=128, use_pallas=j_pallas,
+        line_cfg=JLineConfig(chi_fn=half))(st, engine=j_engine).od_by_mol)
+
+    cat = co2_catalog(synthetic_catalog_mw, lines)
+    state = state_from_numpy(st, "cpu", torch.float32)
+    got = {}
+    for chi in (None, half):
+        m = ODModel(wn, dv, cat, nmol=22, device="cpu", wn_tile=128,
+                    line_tile=128, line_cfg=dc.replace(LineConfig(),
+                                                       chi_fn=chi))
+        with torch.no_grad():
+            got[chi] = m(state, engine=engine).od_by_mol.numpy()
+    a, b = got[None], got[half]
+    assert np.abs(a[:, 1, :]).max() > 0
+    np.testing.assert_allclose(b, ref, rtol=2e-5,
+                               atol=2e-6 * float(np.abs(ref).max()))
+    np.testing.assert_allclose(b[:, 1, :], 0.5 * a[:, 1, :], rtol=1e-6)
+    keep = [i for i in range(a.shape[1]) if i != 1]
+    np.testing.assert_array_equal(b[:, keep, :], a[:, keep, :])

@@ -23,7 +23,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from monortm_tpu import native as j_native
 from monortm_tpu.pipeline import run as j_run
 from monortm_tpu_torch import cli
 from monortm_tpu_torch import pipeline
@@ -80,12 +79,9 @@ def iatm1(tmp_path_factory):
     d = tmp_path_factory.mktemp("torchiatm1")
     make_minimal_rundir(d, nprof=1)
     (d / "MONORTM.IN").write_text(iatm1_tape5())
-    with pytest.MonkeyPatch.context() as mp:
-        # the JAX package's Python layering walk, which the port copies
-        # (its native helper agrees at 1e-12: tests/test_torch_io.py)
-        mp.setattr(j_native, "_LIB", False)
-        ref = _jax(d, "jax")
-    return d, ref, _port(d, "port")
+    # both packages' default layering: their native helpers, built from
+    # the same source (tests/test_torch_native.py)
+    return d, _jax(d, "jax"), _port(d, "port")
 
 
 def _same_results(mine, ref, f64=False):
@@ -226,9 +222,11 @@ def test_cli_writes_the_same_output(iatm0):
 
 
 def test_refusals(iatm0, tmp_path):
-    """A float32 kernel engine asked for at float64 and IXSECT >= 1 raise
-    before any file is written; without a card the default device
-    raises; nothing falls back to the CPU."""
+    """A float32 kernel engine asked for at float64 raises before any
+    file is written; without a card the default device raises; nothing
+    falls back to the CPU.  IXSECT >= 1, once refused, runs (an IATM=1
+    cross-section rundir: tests/test_torch_xsec.py holds it to the JAX
+    pipeline)."""
     d, _, _ = iatm0
     f = _files(d)
     args = ["--in", str(f["filein"]), "--prof", str(f["fileprof"]),
@@ -242,10 +240,13 @@ def test_refusals(iatm0, tmp_path):
             run(**f, outdir=tmp_path / "o", device="cpu",
                 dtype=torch.float64, engine=engine)
     assert not (tmp_path / "o").exists()
-    (tmp_path / "MONORTM.IN").write_text(iatm1_tape5(ixsect=1))
-    with pytest.raises(NotImplementedError, match="cross-sections"):
-        run(filein=tmp_path / "MONORTM.IN", hfile=f["hfile"],
-            outdir=tmp_path / "o", device="cpu")
+    from tests.test_torch_xsec import _iatm1_xsec_rundir
+    _iatm1_xsec_rundir(tmp_path / "x")
+    res = run(filein=tmp_path / "x" / "MONORTM.IN",
+              hfile=tmp_path / "x" / "TAPE3", outdir=tmp_path / "x" / "o",
+              device="cpu")
+    assert np.asarray(res.results[0].odx).min() > 0.0
+    assert (tmp_path / "x" / "o" / "MONORTM.OUT").exists()
     assert not (tmp_path / "o" / "TAPE7").exists()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -264,13 +265,11 @@ def _f64_rundir(d, kind):
 
 
 @pytest.mark.parametrize("kind", ["iatm0", "iatm1"])
-def test_float64_run_matches_jax(kind, tmp_path, monkeypatch):
+def test_float64_run_matches_jax(kind, tmp_path):
     """run(dtype=float64) against the JAX float64 pipeline's dense
     engine, on make_minimal_rundir (3 profiles) and the IATM=1 rundir."""
     import torch
     _f64_rundir(tmp_path, kind)
-    # the JAX package's Python layering walk, which the port copies
-    monkeypatch.setattr(j_native, "_LIB", False)
     ref = j_run(**_files(tmp_path), outdir=tmp_path / "jax", mesh=None,
                 engine="xla", dtype=jnp.float64)
     mine = run(**_files(tmp_path), outdir=tmp_path / "port", device="cpu",
