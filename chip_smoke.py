@@ -80,10 +80,28 @@ on the GPU):
     `write_tape3`: resolved lines and packed catalog equal field by field;
     seconds per profile of the layering and seconds of the catalog
     stage, each side.
+  13 meshes: gloo ranks sharing the one card (`--backend gloo --device
+    cuda:0`; NCCL refuses two ranks on one card, so this shows
+    correctness, not scaling), started by `parallel.distributed.spawn`:
+    the CLI with `--distributed` on phase 8's rundir at meshes 2x1, 1x2
+    and 2x2, MONORTM.OUT byte-identical to phase 8's cap-64 run when the
+    engine split is the same, every rank launching both forward kernels;
+    1x1x2 (the candidate columns over two line ranks) twice with
+    `--netcdf`, byte-identical run to run, Tb within 2e-3 K and the layer
+    OD at the forward tolerance of a single-device NetCDF run; float64 at
+    1x2 on phase 9's cut, byte-identical to phase 9; and
+    `shard_forward_and_grad` at bench.py's workload on 1x2 and 2x1
+    (`--mesh-rank`, one process per rank): loss and gathered gradients
+    against phase 6's single-device value_and_grad (rtol 1e-5, atol 1e-6
+    x max), every rank launching all four kernels, and each rank's forward
+    and adjoint kernels against their plain versions on its own plan (the
+    layers each engine took, a seeded cotangent).  Each rank's backend,
+    device and launches and each mesh's wall seconds are printed.
 
 Run from the repository root:  python3 chip_smoke.py
 (`python3 chip_smoke.py --batch-stages` builds the kernels and runs only
-phase 8's stage-by-stage chunk comparison.)
+phase 8's stage-by-stage chunk comparison; `--mesh-rank DIR MESH` is one
+rank of phase 13's gradient check, started by phase 13.)
 Exits non-zero (and prints no result line) without a CUDA device or when
 any phase fails; a phase prints all of its comparisons before it fails.
 The line before the last two lists each kernel with its launches on the
@@ -341,6 +359,29 @@ def lane_counts(pre, mol, wn_hi, wn_lo, cand_map, cand_valid, nt, wt,
     check(int(by_class.sum()) == counts[0] + counts[1],
           "lane counts by class do not add up")
     return counts, sd_lanes, by_class.view(-1, 2).tolist()
+
+
+def operands(model, state, engine, layers):
+    """The kernel operands the forward gives `engine` for `layers` (on a
+    mesh, this rank's plan and profile block), with the plan's reverse map
+    last."""
+    from monortm_tpu_torch.ops.linesum import precompute
+    from monortm_tpu_torch.types import LayerState
+    od = model.od_model
+    ix = torch.as_tensor(layers, device=state.p.device)
+    sub = LayerState(p=state.p.index_select(-1, ix),
+                     t=state.t.index_select(-1, ix), tz=state.tz,
+                     wkl=state.wkl.index_select(-2, ix),
+                     wbrodl=state.wbrodl.index_select(-1, ix),
+                     clw=state.clw)
+    scor = od.tips.scor(sub.t)
+    plan = od.dev_plans[engine]
+    pre = precompute(plan["cat"], sub.p.reshape(-1), sub.t.reshape(-1),
+                     sub.wkl.reshape(-1, 39), sub.wbrodl.reshape(-1),
+                     scor.reshape(-1, 39 * 9), od.line_cfg)
+    return (pre, plan["cat"]["mol"], plan["wn_hi"], plan["wn_lo"],
+            plan["cand_map"], plan["cand_valid"], plan["nt"], plan["wt"],
+            od.nmol, plan["rev"])
 
 
 def bound(direction, voigt, counts, n_bytes, ops_table=OPS):
@@ -970,12 +1011,275 @@ def print_batch_stages(model, dev) -> bool:
     return first is None
 
 
+# phase 13: the meshes of CLI runs on phase 8's rundir (ranks), the line
+# axis, float64 on phase 9's cut, and the gradient on bench.py's workload
+MESH_CLI = (("2x1", 2), ("1x2", 2), ("2x2", 4))
+MESH_GRAD = (("1x2", 2), ("2x1", 2))
+GRAD_RTOL, GRAD_ATOL_REL = 1e-5, 1e-6   # vs the single-device gradient
+MESH_TIMEOUT = 300
+
+
+def spawn_cli(files, outdir: Path, n: int, mesh: str, *extra):
+    """`python -m monortm_tpu_torch.cli --distributed` as n gloo ranks on
+    the one card (cuda:0); returns (wall s, [(exit code, output)])."""
+    from monortm_tpu_torch.parallel.distributed import spawn
+    argv = ["-m", "monortm_tpu_torch.cli", "--in", str(files["filein"]),
+            "--prof", str(files["fileprof"]), "--tape3", str(files["hfile"]),
+            "--outdir", str(outdir), "--distributed", "--backend", "gloo",
+            "--device", "cuda:0", "--mesh", mesh, *extra]
+    t0 = time.perf_counter()
+    outs = spawn(argv, n, cwd=Path(__file__).resolve().parent,
+                 timeout=MESH_TIMEOUT)
+    return time.perf_counter() - t0, outs
+
+
+def rank_lines(what, outs) -> list:
+    """Each rank's backend / device line and forward launches, printed;
+    a rank that failed fails the phase.  Returns the launches."""
+    launches = []
+    for r, (rc, text) in enumerate(outs):
+        info = [ln.split(": ", 1)[1] for ln in text.splitlines()
+                if ln.startswith(f"monortm-tpu-torch: rank {r}")]
+        log(f"  {what} rank {r}: exit {rc}; " + "; ".join(info))
+        if rc != 0:
+            FAILED.append(f"{what}: rank {r} exited {rc}")
+            log("  " + text[-3000:].replace("\n", "\n  "))
+            launches.append(None)
+            continue
+        tail = [ln for ln in info if "launches" in ln]
+        launches.append(json.loads(tail[-1].split("launches ", 1)[1])
+                        if tail else None)
+    return launches
+
+
+def engine_lines(outdir: Path) -> list:
+    return [ln for ln in (outdir / "MONORTM.LOG").read_text().splitlines()
+            if ln.startswith(" ENGINE SPLIT")]
+
+
+def mesh_rank(d: Path, mesh_arg: str) -> int:
+    """A rank of phase 13's gradient check (`--mesh-rank DIR MESH`, under
+    `parallel.distributed.spawn`): shard_forward_and_grad at bench.py's
+    workload on the card, its gradients gathered against the single-device
+    ones in DIR/inputs.pt, and each forward and adjoint kernel against its
+    plain version on this rank's plan; writes DIR/MESH-rankR.json."""
+    import torch.distributed as dist
+    from monortm_tpu_torch.models.monortm import MonoRTM
+    from monortm_tpu_torch.ops.linesum import VOIGT_KERNEL
+    from monortm_tpu_torch.ops.linesum_lorentz import LORENTZ_KERNEL
+    from monortm_tpu_torch.parallel import distributed
+    from monortm_tpu_torch.parallel.sharding import (make_mesh, shard_batch,
+                                                     shard_forward_and_grad,
+                                                     shard_state)
+    from monortm_tpu_torch.testing import synthetic_catalog_mw
+    from monortm_tpu_torch.types import LayerState
+
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.init_distributed("gloo")
+    dims = [int(v) for v in mesh_arg.split("x")]
+    mesh = make_mesh(n_prof=dims[0], n_wn=dims[1])
+    inp = torch.load(d / "inputs.pt")
+    wn = np.linspace(0.3, 55.0, NWN)
+    model = MonoRTM(wn, float(wn[1] - wn[0]),
+                    synthetic_catalog_mw(n_h2o=2048, n_o2=1024, tile=512),
+                    nmol=22, device=dev, mesh=mesh)
+    od = model.od_model
+    state = LayerState(**{f: inp["state"][f].to(dev) for f in FIELDS})
+    st = shard_state(state, mesh)
+    emis = inp["emis"].to(dev)
+    split = model.engine_split(st)
+    kernels = {"full": VOIGT_KERNEL, "lorentz": LORENTZ_KERNEL}
+    for k in kernels.values():
+        k.launches = k.bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = shard_forward_and_grad(model, mesh, 3, *split)(
+        st, shard_batch(inp["tsfc"].to(dev), mesh), emis, 1.0 - emis,
+        shard_batch(inp["tb_obs"].to(dev), mesh))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"rank": mesh.rank, "coords": mesh.coords, "device": str(dev),
+           "backend": dist.get_backend(), "split": [split[0],
+                                                    list(split[1])],
+           "value_and_grad_s": wall,
+           "launches": {k.name: [k.launches, k.bwd_launches]
+                        for k in kernels.values()},
+           "loss": float(loss), "loss_single": float(inp["loss"])}
+    if abs(float(loss) - float(inp["loss"])) > GRAD_RTOL * abs(
+            float(inp["loss"])):
+        FAILED.append(f"loss {float(loss)} vs {float(inp['loss'])}")
+    for f in FIELDS:
+        g = distributed.gather(getattr(grads, f), mesh).cpu()
+        out[f"grad_{f}"] = compare(g, inp["grads"][f], f"rank {mesh.rank} "
+                                   f"d loss / d {f} vs single device",
+                                   GRAD_ATOL_REL, GRAD_RTOL)
+    # each kernel against its plain version on this rank's plan, at the
+    # layers the main path gave it, with a seeded cotangent
+    lor = list(split[1])
+    layers = {"full": [i for i in range(NLAY) if i not in set(lor)],
+              "lorentz": lor}
+    gen = torch.Generator().manual_seed(mesh.rank)
+    for eng, k in kernels.items():
+        if not layers[eng]:
+            continue
+        args = operands(model, st, eng, layers[eng])
+        pre, mol, wh, wl, cm, cv, nt, wt, n_mol, rev = args
+        what = f"rank {mesh.rank} {k.name}"
+        out[f"fwd_{k.name}"] = compare(k(*args[:9]), k.plain(*args[:9]),
+                                       f"{what} forward vs plain")
+        g = torch.randn((pre["stild"].shape[0], wh.shape[0], n_mol),
+                        generator=gen).to(dev)
+        got = k.launch_bwd(pre, mol, wh, wl, *rev, nt, wt, n_mol, g)
+        ref = k.plain_bwd(pre, mol, wh, wl, cm, cv, nt, wt, n_mol, g)
+        out[f"bwd_{k.name}"] = max(
+            (compare(a, b, f"{what} adjoint d{n} vs plain", BWD_ATOL)
+             for n, a, b in zip(PER_LN, got, ref) if b is not None),
+            key=lambda e: e[1])
+        out[f"plan_{k.name}"] = [list(cm.shape), list(rev[0].shape)]
+    out["failed"] = list(FAILED)
+    (d / f"{mesh_arg}-rank{mesh.rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 1 if FAILED else 0
+
+
+def phase13_mesh(tmp: Path, grad_inputs: dict) -> dict:
+    """Phase 13 (see the module docstring); returns each kernel's launches
+    per rank, by mesh."""
+    from scipy.io import netcdf_file
+
+    from monortm_tpu_torch import pipeline
+    from monortm_tpu_torch.parallel.distributed import spawn
+    files = rundir_files(tmp / "rundir")
+    single = tmp / f"cap{PIPE_CAPS[0]}_0"
+    launches = {}
+    for mesh, n in MESH_CLI:
+        out = tmp / f"mesh {mesh}"
+        wall, outs = spawn_cli(files, out, n, mesh)
+        launches[mesh] = rank_lines(f"mesh {mesh}", outs)
+        if not (out / "MONORTM.OUT").exists():
+            continue
+        same_split = engine_lines(out) == engine_lines(single)
+        same = (out / "MONORTM.OUT").read_bytes() == \
+            (single / "MONORTM.OUT").read_bytes()
+        log(f"  mesh {mesh} ({n} ranks): {wall:.3f} s; engine split "
+            f"{engine_lines(out)}; the same split as phase 8 cap "
+            f"{PIPE_CAPS[0]}: {same_split}; MONORTM.OUT byte-identical to "
+            f"it: {same}")
+        if not all(lc and all(lc.values()) for lc in launches[mesh]):
+            FAILED.append(f"mesh {mesh}: a rank did not launch both forward "
+                          f"kernels: {launches[mesh]}")
+        if same_split and not same:
+            FAILED.append(f"mesh {mesh}: MONORTM.OUT differs from the "
+                          "single-device run under the same engine split")
+
+    # the line axis: float32 partial sums over two line ranks, held at the
+    # forward's tolerance against a single-device NetCDF run, and to the
+    # same bytes from run to run
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        pipeline.run(**files, outdir=tmp / "single nc", device="cuda",
+                     netcdf=True)
+    log(f"  single-device NetCDF run: {time.perf_counter() - t0:.3f} s")
+    runs = []
+    for rep in range(2):
+        out = tmp / f"mesh 1x1x2 {rep}"
+        wall, outs = spawn_cli(files, out, 2, "1x1x2", "--netcdf")
+        lc = rank_lines(f"mesh 1x1x2 run {rep + 1}", outs)
+        launches[f"1x1x2 run {rep + 1}"] = lc
+        log(f"  mesh 1x1x2 run {rep + 1}: {wall:.3f} s")
+        if not all(c and all(c.values()) for c in lc):
+            FAILED.append(f"mesh 1x1x2: a rank did not launch both forward "
+                          f"kernels: {lc}")
+        runs.append(out)
+    if all((r / "MONORTM.OUT").exists() for r in runs):
+        same = (runs[0] / "MONORTM.OUT").read_bytes() == \
+            (runs[1] / "MONORTM.OUT").read_bytes()
+        log(f"  mesh 1x1x2: MONORTM.OUT byte-identical between runs: {same}")
+        if not same:
+            FAILED.append("mesh 1x1x2: MONORTM.OUT differs between runs")
+
+        def nc_stack(d):
+            """Every profile's BT [P, W] and layer OD [P, W, L]."""
+            tb, od = [], []
+            for i in range(1, PIPE_NPROF + 1):
+                with netcdf_file(str(d / f"MONORTM.{i:05d}.nc"),
+                                 mmap=False) as nc:
+                    tb.append(np.array(nc.variables["BT"][:]))
+                    od.append(np.array(
+                        nc.variables["LAYER_OPTICAL_DEPTH"][:]))
+            return torch.as_tensor(np.stack(tb)), torch.as_tensor(
+                np.stack(od))
+
+        (tb_m, od_m), (tb_s, od_s) = nc_stack(runs[0]), nc_stack(
+            tmp / "single nc")
+        tb_err = float((tb_m - tb_s).abs().max())
+        log(f"  mesh 1x1x2 Tb vs single device: max_abs_err={tb_err:.3e} K")
+        if tb_err > TB_ATOL:
+            FAILED.append(f"mesh 1x1x2: Tb {tb_err} K from the single run")
+        compare(od_m, od_s, "mesh 1x1x2 layer OD vs single device")
+
+    # float64 on phase 9's cut: the dense engine's tiles split over wn
+    out = tmp / "mesh 1x2 f64"
+    wall, outs = spawn_cli(rundir_files(tmp / "rundir8"), out, 2, "1x2",
+                           "--precision", "float64")
+    launches["1x2 float64"] = rank_lines("mesh 1x2 float64", outs)
+    if (out / "MONORTM.OUT").exists():
+        same = (out / "MONORTM.OUT").read_bytes() == \
+            (tmp / "f64 cap 8, run 1" / "MONORTM.OUT").read_bytes()
+        log(f"  mesh 1x2 float64 ({F64_NPROF} profiles): {wall:.3f} s; "
+            f"MONORTM.OUT byte-identical to phase 9's: {same}")
+        if not same:
+            FAILED.append("mesh 1x2 float64: MONORTM.OUT differs from "
+                          "phase 9's")
+
+    # shard_forward_and_grad at bench.py's workload
+    gd = tmp / "grad"
+    gd.mkdir()
+    torch.save(grad_inputs, gd / "inputs.pt")
+    for mesh, n in MESH_GRAD:
+        t0 = time.perf_counter()
+        outs = spawn([str(Path(__file__).resolve()), "--mesh-rank", str(gd),
+                      mesh], n, timeout=MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        launches[f"{mesh} value_and_grad"] = []
+        for r, (rc, text) in enumerate(outs):
+            js = gd / f"{mesh}-rank{r}.json"
+            if rc != 0 or not js.exists():
+                FAILED.append(f"grad mesh {mesh}: rank {r} exited {rc}")
+                log("  " + text[-4000:].replace("\n", "\n  "))
+                continue
+            res = json.loads(js.read_text())
+            launches[f"{mesh} value_and_grad"].append(res["launches"])
+            FAILED.extend(f"grad mesh {mesh} rank {r}: {f}"
+                          for f in res["failed"])
+            log(f"  grad mesh {mesh} rank {r} {res['coords']} on "
+                f"{res['device']} ({res['backend']}): value_and_grad "
+                f"{res['value_and_grad_s']:.3f} s, split {res['split'][0]} "
+                f"({len(res['split'][1])} all-Lorentz layers), (forward, "
+                f"adjoint) launches {res['launches']}; loss {res['loss']:.6e}"
+                f" (single {res['loss_single']:.6e}); worst grad err/max "
+                f"{max(res[f'grad_{f}'][1] for f in FIELDS):.2e}; kernel vs "
+                f"plain on the rank's plan (cand map, reverse map shapes "
+                + ", ".join(f"{k}: {res.get('plan_' + k)} fwd "
+                            f"{res.get('fwd_' + k)} bwd {res.get('bwd_' + k)}"
+                            for k in ("voigt", "lorentz")) + ")")
+            if not all(a > 0 and b > 0 for a, b in res["launches"].values()):
+                FAILED.append(f"grad mesh {mesh} rank {r}: a kernel did not "
+                              f"launch: {res['launches']}")
+        log(f"  grad mesh {mesh} ({n} ranks): {wall:.3f} s")
+    return launches
+
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
               file=sys.stderr)
         return 2
+    if argv[:1] == ["--mesh-rank"]:
+        return mesh_rank(Path(argv[1]), argv[2])
     from monortm_tpu_torch.ops import linesum_kernel
     from monortm_tpu_torch.ops.linesum import (VOIGT_KERNEL,
                                                line_sum_bwd_plain,
@@ -1022,25 +1326,6 @@ def main(argv=None) -> int:
     def with_p(st, p_hpa):
         return LayerState(p=torch.full_like(st.p, p_hpa), t=st.t, tz=st.tz,
                           wkl=st.wkl, wbrodl=st.wbrodl, clw=st.clw)
-
-    def operands(model, state, engine, layers):
-        """The kernel operands the forward gives `engine` for `layers`,
-        with the plan's reverse map last."""
-        od = model.od_model
-        ix = torch.as_tensor(layers, device=dev)
-        sub = LayerState(p=state.p.index_select(-1, ix),
-                         t=state.t.index_select(-1, ix), tz=state.tz,
-                         wkl=state.wkl.index_select(-2, ix),
-                         wbrodl=state.wbrodl.index_select(-1, ix),
-                         clw=state.clw)
-        scor = od.tips.scor(sub.t)
-        plan = od.dev_plans[engine]
-        pre = precompute(plan["cat"], sub.p.reshape(-1), sub.t.reshape(-1),
-                         sub.wkl.reshape(-1, 39), sub.wbrodl.reshape(-1),
-                         scor.reshape(-1, 39 * 9), od.line_cfg)
-        return (pre, plan["cat"]["mol"], plan["wn_hi"], plan["wn_lo"],
-                plan["cand_map"], plan["cand_valid"], plan["nt"], plan["wt"],
-                od.nmol, plan["rev"])
 
     def without_sd(pre):
         """The operands with the catalog's speed dependence off, as the
@@ -1506,8 +1791,25 @@ def main(argv=None) -> int:
     log("phase 12 native host helper: IATM=1 layering and load_catalog, "
         "native vs Python walk")
     phase12_native(tmp)
-    tmp_dir.cleanup()
     phase_done(12)
+
+    # ---- phase 13: ranks on a mesh, sharing the card over gloo ----------
+    log("phase 13 meshes: gloo ranks sharing the card (correctness, not "
+        "scaling), through the CLI with --distributed on phase 8's rundir, "
+        f"float64 on phase 9's, value_and_grad at bench.py's workload")
+    mesh_launches = phase13_mesh(tmp, {
+        "state": {f: getattr(state, f).cpu() for f in FIELDS},
+        "tsfc": tsfc.cpu(), "emis": emis.cpu(), "tb_obs": tb_obs.cpu(),
+        "loss": loss.cpu(), "grads": {f: g.cpu() for f, g in grads.items()}})
+    for k in kernels.values():
+        results[f"linesum_{k.name}"]["mesh_launches"] = {
+            m: [lc and lc.get(k.name) for lc in v]
+            for m, v in mesh_launches.items() if "grad" not in m}
+        results[f"linesum_bwd_{k.name}"]["mesh_launches"] = {
+            m: [lc[k.name][1] for lc in v]
+            for m, v in mesh_launches.items() if "grad" in m}
+    tmp_dir.cleanup()
+    phase_done(13)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1521,7 +1823,8 @@ def main(argv=None) -> int:
           and all(r["launches"] for r in rows),
           f"incomplete kernel results: {rows}")
     extra = ("bound_ms_flat_count", "bound_ms_dual_count", "registers",
-             "blocks_per_sm", "kernels_per_launch", "pipeline_launches")
+             "blocks_per_sm", "kernels_per_launch", "pipeline_launches",
+             "mesh_launches")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi.stdout.strip().splitlines()[0])

@@ -27,7 +27,22 @@ in.  A model builds the dense tiles on the first call of the dense
 engine, so a float32 model that runs only the kernels never holds them.
 
 Cross-sections are host numpy (`ops.xsec`, the pipeline's `xsec-prep`
-stage); `od_xsec` adds their OD to the total.  Not ported: meshes.
+stage); `od_xsec` adds their OD to the total.
+
+On a (prof, wn[, line]) mesh (`parallel.sharding.Mesh`, the JAX
+`ODModel(mesh=)`) a model takes this rank's profile block and returns its
+block of the wavenumber grid.  Every plan pads its wavenumber tiles to a
+multiple of the "wn" axis and its candidate columns (and the dense
+engine's O2 tiles) to a multiple of the "line" axis, as the JAX plans do;
+each rank keeps its own rows and column block, with a reverse map made
+from them, and launches the kernels there.  The line-axis partials are
+all-reduced (`distributed.sum_partials`).  The continuum runs on the full
+grid and is sliced (its XINT regrid and host windowing see the whole
+grid), the cloud, RFT*W and RT on the rank's columns.  Gradients: the line
+sum's inputs, which every (wn, line) rank holds alike, sum their
+cotangents over ("wn", "line") (the kernel path's seven cotangents), and
+the state's wn-local uses sum theirs over "wn" (`wn_entry`), so each
+rank's state gradient is its profile block's whole one.
 """
 
 from __future__ import annotations
@@ -50,6 +65,8 @@ from monortm_tpu_torch.ops.linesum import (VOIGT_KERNEL, line_od_forward,
 from monortm_tpu_torch.ops.linesum_lorentz import (LORENTZ_KERNEL,
                                                    all_lorentz_predicate)
 from monortm_tpu_torch.ops.tips import Tips
+from monortm_tpu_torch.parallel.distributed import (all_reduce, shared_input,
+                                                    sum_partials)
 from monortm_tpu_torch.types import FIELDS, LayerState
 
 ENGINES = ("full", "lorentz", "hybrid", "dense")
@@ -78,8 +95,19 @@ class ODResult:
     od_xsec: Any = None  # [..., L, W] extra OD from the host, or None
 
 
+def wn_blocks(nwn: int, wt: int, n_wn: int) -> list[tuple[int, int]]:
+    """Each wn rank's columns [c0, c1) of the real grid: tiles of `wt`
+    wavenumbers, their count padded to a multiple of n_wn, split into
+    equal runs of tiles in rank order (the last ranks may hold padding
+    alone)."""
+    n_wt = max(1, -(-nwn // wt))
+    rows = -(-n_wt // n_wn)
+    return [(min(nwn, w * rows * wt), min(nwn, (w + 1) * rows * wt))
+            for w in range(n_wn)]
+
+
 def build_plan(catalog: PackedCatalog, host_cat: dict, wn64: np.ndarray,
-               nt: int, wt: int) -> dict:
+               nt: int, wt: int, n_wn: int = 1, n_line: int = 1) -> dict:
     """Block-sparse plan for the line sum (host numpy).
 
     Lines are re-ordered into nu-sorted windowed tiles of `nt` followed by
@@ -87,9 +115,11 @@ def build_plan(catalog: PackedCatalog, host_cat: dict, wn64: np.ndarray,
     wavenumber tile of `wt` gets a static candidate list of the windowed
     tiles overlapping its +-25 cm^-1 reach plus every O2 tile.  Padding
     slots map to tile 0 with valid=0 and are skipped, so pruning is purely
-    an optimisation.  The JAX package's `ODModel._build_pallas_plan` on a
-    single device, returning the plan instead of setting attributes, plus
-    the reverse map of the adjoint (`linesum_pallas._reverse_map`).
+    an optimisation.  The JAX package's `ODModel._build_pallas_plan`,
+    returning the plan instead of setting attributes, plus the reverse map
+    of the adjoint (`linesum_pallas._reverse_map`).  On a mesh the tile
+    count is padded to a multiple of n_wn and the candidate columns to a
+    multiple of n_line (`shard_plan` cuts each rank's block).
     """
     nwn = len(wn64)
     nt = max(128, (nt // 128) * 128)
@@ -126,8 +156,10 @@ def build_plan(catalog: PackedCatalog, host_cat: dict, wn64: np.ndarray,
     cat = {k: v[rows] for k, v in host_cat.items()}
     cat["valid"] = np.asarray(catalog.valid)[rows] & mask
 
-    # padded wavenumber grid + host two-float split (float64 numpy)
+    # padded wavenumber grid + host two-float split (float64 numpy); equal
+    # tiles per wn rank
     n_wtile = max(1, -(-nwn // wt))
+    n_wtile = -(-n_wtile // n_wn) * n_wn
     wp = n_wtile * wt
     wn_pad = np.full(wp, 1.0e6, np.float64)
     wn_pad[:nwn] = wn64
@@ -156,6 +188,8 @@ def build_plan(catalog: PackedCatalog, host_cat: dict, wn64: np.ndarray,
         sel += list(range(k_win, k_win + k_o2))    # O2 tiles always
         cands.append(sel)
     n_cand = max(max((len(c) for c in cands), default=0), 1)
+    # equal candidate columns per line rank
+    n_cand = -(-n_cand // n_line) * n_line
     cmap = np.zeros((n_wt, n_cand), np.int32)
     cvalid = np.zeros((n_wt, n_cand), np.int32)
     for i, c in enumerate(cands):
@@ -165,6 +199,25 @@ def build_plan(catalog: PackedCatalog, host_cat: dict, wn64: np.ndarray,
     rmap, rvalid = reverse_map(cmap, cvalid, len(rows) // nt)
     return {"cat": cat, "nt": nt, "wt": wt, "wn_hi": wn_hi, "wn_lo": wn_lo,
             "cand_map": cmap, "cand_valid": cvalid, "rev_map": rmap,
+            "rev_valid": rvalid}
+
+
+def shard_plan(plan: dict, n_wn: int, n_line: int, w: int, l: int) -> dict:
+    """The block of a mesh-padded plan that wn rank `w`, line rank `l`
+    sweeps: its rows of the candidate map and its column block, its
+    wavenumbers, and the reverse map of that block (the JAX per-shard
+    reverse maps, linesum_pallas.py:766-780); the plan itself on one
+    device."""
+    if n_wn == n_line == 1:
+        return plan
+    cm, cv = plan["cand_map"], plan["cand_valid"]
+    rows, cols = cm.shape[0] // n_wn, cm.shape[1] // n_line
+    rs, cs = slice(w * rows, (w + 1) * rows), slice(l * cols, (l + 1) * cols)
+    cm, cv = np.ascontiguousarray(cm[rs, cs]), np.ascontiguousarray(cv[rs, cs])
+    ws = slice(w * rows * plan["wt"], (w + 1) * rows * plan["wt"])
+    rmap, rvalid = reverse_map(cm, cv, len(plan["cat"]["mol"]) // plan["nt"])
+    return {**plan, "wn_hi": plan["wn_hi"][ws], "wn_lo": plan["wn_lo"][ws],
+            "cand_map": cm, "cand_valid": cv, "rev_map": rmap,
             "rev_valid": rvalid}
 
 
@@ -188,19 +241,25 @@ def plan_to_device(plan: dict, device) -> dict:
 
 
 def build_dense_tiles(catalog: PackedCatalog, host_cat: dict,
-                      wn64: np.ndarray, wn_tile: int, line_tile: int) -> dict:
+                      wn64: np.ndarray, wn_tile: int, line_tile: int,
+                      n_wn: int = 1, n_line: int = 1) -> dict:
     """Tiles of the dense engine (host numpy): the JAX package's
-    `ODModel._build_line_tiles` and wavenumber tiling on one device.
+    `ODModel._build_line_tiles` and wavenumber tiling.
 
     The catalog splits into (a) O2 tiles, visited for every wavenumber
     tile (no 25 cm^-1 cut for O2, modm.f90:384), and (b) nu-sorted
     windowed tiles with a static candidate list per wavenumber tile, whose
     nu range (pressure-shift margin included) reaches the tile.  Padding
     lines repeat line 0 with valid=0, so the pruning changes no result.
+    On a mesh the wavenumber tiles are padded to a multiple of n_wn, and
+    each tile's candidate list and the O2 tiles are cut into n_line
+    column blocks (the JAX padding, od.py:99 and :198); `shard_dense`
+    takes a rank's.
     """
     nwn = len(wn64)
     wt = min(wn_tile, max(8, nwn))
     n_wt = -(-nwn // wt)
+    n_wt = -(-n_wt // n_wn) * n_wn
     wn_pad = np.full(n_wt * wt, 1.0e6, np.float64)
     wn_pad[:nwn] = wn64
     wn_tiles = wn_pad.reshape(n_wt, wt)
@@ -243,14 +302,34 @@ def build_dense_tiles(catalog: PackedCatalog, host_cat: dict,
             w = w[w < 9.0e5]
             wmin, wmax = (w.min(), w.max()) if len(w) else (0.0, 0.0)
             cands[i] = np.nonzero((lo <= wmax) & (hi >= wmin))[0].tolist()
+    n_o2 = 0 if o2 is None else len(o2["mol"])
     return {"wt": wt, "wn": wn_tiles, "wn_hi": wn_hi, "wn_lo": wn_lo,
-            "win": win, "o2": o2, "cand": cands}
+            "win": win, "o2": o2, "cand": cands, "o2_idx": list(range(n_o2)),
+            "cols": -(-max(1, max(map(len, cands), default=0)) // n_line),
+            "o2_cols": -(-n_o2 // n_line)}
+
+
+def shard_dense(tiles: dict, n_wn: int, n_line: int, w: int, l: int) -> dict:
+    """The dense tiles wn rank `w`, line rank `l` sweeps: its rows of
+    wavenumber tiles, its block of each tile's candidate columns and of
+    the O2 tiles (padding slots dropped: they add nothing); the tiles
+    themselves on one device."""
+    if n_wn == n_line == 1:
+        return tiles
+    rows = len(tiles["cand"]) // n_wn
+    rs = slice(w * rows, (w + 1) * rows)
+    c, k = tiles["cols"], tiles["o2_cols"]
+    return {**tiles, "wn": tiles["wn"][rs], "wn_hi": tiles["wn_hi"][rs],
+            "wn_lo": tiles["wn_lo"][rs],
+            "cand": [cd[l * c:(l + 1) * c] for cd in tiles["cand"][rs]],
+            "o2_idx": tiles["o2_idx"][l * k:(l + 1) * k]}
 
 
 def dense_to_device(tiles: dict, device, dtype: torch.dtype) -> dict:
     """The dense engine's tiles as tensors on `device`."""
     cat = lambda c: None if c is None else catalog_to_device(c, device)
     return {"wt": tiles["wt"], "cand": tiles["cand"],
+            "o2_idx": tiles["o2_idx"],
             "wn": torch.as_tensor(tiles["wn"], dtype=dtype, device=device),
             "wn_hi": torch.as_tensor(tiles["wn_hi"], device=device),
             "wn_lo": torch.as_tensor(tiles["wn_lo"], device=device),
@@ -260,14 +339,15 @@ def dense_to_device(tiles: dict, device, dtype: torch.dtype) -> dict:
 class ODModel:
     """Optical depths for one spectral setup, on one device (the CUDA card
     unless `device` names another), in float32 (every engine) or float64
-    (the dense engine)."""
+    (the dense engine); with `mesh`, this rank's block of a (prof, wn[,
+    line]) mesh (see the module docstring)."""
 
     def __init__(self, wn: np.ndarray, dvset: float, catalog: PackedCatalog,
                  nmol: int = 39,
                  factors: ContinuumFactors = ContinuumFactors(),
                  line_cfg: LineConfig = LineConfig(), *, device="cuda",
                  dtype: torch.dtype = torch.float32,
-                 wn_tile: int = 128, line_tile: int = 256):
+                 wn_tile: int = 128, line_tile: int = 256, mesh=None):
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64: {dtype}")
         # the device a tensor made there reports: a bare "cuda" becomes the
@@ -279,6 +359,25 @@ class ODModel:
         self.nmol = int(nmol)
         self.dtype = dtype
         self.line_cfg = line_cfg
+        # a mesh of one rank is no mesh
+        self.mesh = mesh if mesh is not None and mesh.size() > 1 else None
+        m = self.mesh
+        n_wn = m.shape["wn"] if m else 1
+        n_line = m.shape.get("line", 1) if m else 1
+        shard = (n_wn, n_line, m.coords["wn"] if m else 0,
+                 m.coords.get("line", 0) if m else 0)
+        # every engine's wavenumber tiles must split the grid alike
+        wts = {min(DENSE_WN_TILE, max(8, self.nwn))}
+        if dtype == torch.float32:
+            wts |= {max(128, (wn_tile // 128) * 128), 128}
+        blocks = {tuple(wn_blocks(self.nwn, wt, n_wn)) for wt in wts}
+        if len(blocks) > 1:
+            raise ValueError(f"wavenumber tiles {sorted(wts)} split the "
+                             f"grid over {n_wn} wn ranks differently; take "
+                             "wn_tile=128")
+        blocks = blocks.pop()
+        self.wn_cols = blocks[shard[2]]
+        self.wn_sizes = [c1 - c0 for c0, c1 in blocks]
         self.cont = ContinuumPlan(self.wn64, dvset=dvset, factors=factors,
                                   nmol=nmol, device=self.device)
         self.tips = Tips(self.device, dtype)
@@ -286,6 +385,7 @@ class ODModel:
         self.host_cat = catalog_to_host(catalog, dtype)
         self.dev_cat = catalog_to_device(self.host_cat, self.device)
         self.default_engine = "full" if dtype == torch.float32 else "dense"
+        self._shard = shard
         self._dense = None
         self.dev_plans = {}
         if dtype == torch.float32:
@@ -293,18 +393,37 @@ class ODModel:
             # 128/128 plan over the same catalog unless the tiles already
             # match (as monortm_tpu's ODModel)
             self.plan = build_plan(catalog, self.host_cat, self.wn64,
-                                   nt=line_tile, wt=wn_tile)
+                                   nt=line_tile, wt=wn_tile, n_wn=n_wn,
+                                   n_line=n_line)
             if (line_tile, wn_tile) != (128, 128):
                 self.plan_lorentz = build_plan(catalog, self.host_cat,
-                                               self.wn64, nt=128, wt=128)
+                                               self.wn64, nt=128, wt=128,
+                                               n_wn=n_wn, n_line=n_line)
             else:
                 self.plan_lorentz = self.plan
-            self.dev_plans = {"full": plan_to_device(self.plan, self.device),
-                              "lorentz": plan_to_device(self.plan_lorentz,
-                                                        self.device)}
-        # wn in the compute dtype (== the plan's wn_hi over the real grid)
-        self.wn_t = torch.as_tensor(self.wn64, dtype=dtype,
+            self.dev_plans = {
+                e: plan_to_device(shard_plan(p, *shard), self.device)
+                for e, p in (("full", self.plan),
+                             ("lorentz", self.plan_lorentz))}
+        # this rank's wavenumbers in the compute dtype (== the plan's wn_hi
+        # over the real grid)
+        c0, c1 = self.wn_cols
+        self.wn_t = torch.as_tensor(self.wn64[c0:c1], dtype=dtype,
                                     device=self.device)
+
+    def local_wn(self, x):
+        """This rank's columns of `x`, a tensor on the model's full grid
+        (last axis nwn); `x` itself on one device, or where it does not
+        span the grid (a number, a broadcast axis)."""
+        if self.mesh is None or not torch.is_tensor(x) or x.ndim == 0 \
+                or x.shape[-1] != self.nwn:
+            return x
+        return x[..., self.wn_cols[0]:self.wn_cols[1]]
+
+    def wn_entry(self, x):
+        """`x` (a state field) where it enters work split over "wn": its
+        gradient is summed over the wn ranks."""
+        return shared_input(x, self.mesh and self.mesh.group("wn"))
 
     def _check(self, state: LayerState) -> LayerState:
         """The state in the model's dtype; it must already be on its device."""
@@ -332,19 +451,25 @@ class ODModel:
     def dense(self) -> dict:
         """The dense engine's tiles on the device, built on first use."""
         if self._dense is None:
-            self._dense = dense_to_device(
+            n_wn, n_line = self._shard[:2]
+            self._dense = dense_to_device(shard_dense(
                 build_dense_tiles(self.catalog, self.host_cat, self.wn64,
-                                  DENSE_WN_TILE, DENSE_LINE_TILE),
+                                  DENSE_WN_TILE, DENSE_LINE_TILE, n_wn,
+                                  n_line), *self._shard),
                 self.device, self.dtype)
         return self._dense
 
     def line_od_dense(self, state: LayerState, scor_flat):
         """Line OD [..., L, W, M] (RFT and columns included) through the
-        dense engine: the JAX package's `line_od`, one device, with the
-        flattened layer rows swept in blocks of DENSE_ROWS."""
+        dense engine: the JAX package's `line_od`, with the flattened
+        layer rows swept in blocks of DENSE_ROWS; on a mesh over this
+        rank's wavenumber tiles and candidate columns, the line ranks'
+        partials summed (od.py:467-511)."""
         dn, dtype = self.dense, self.dtype
         lead = state.p.shape
-        flat = lambda a, trail: a.to(dtype).reshape((-1,) + trail)
+        group = self.mesh and self.mesh.group("wn", "line")
+        flat = lambda a, trail: shared_input(
+            a.to(dtype).reshape((-1,) + trail), group)
         rows = [flat(state.p, ()), flat(state.t, ()),
                 flat(state.wkl, (state.wkl.shape[-1],)),
                 flat(state.wbrodl, ()),
@@ -356,7 +481,6 @@ class ODModel:
             rows = [torch.cat([a, a[:1].expand((pad,) + a.shape[1:])])
                     for a in rows]
         tile = lambda c, k: {key: v[k] for key, v in c.items()}
-        n_o2 = 0 if dn["o2"] is None else dn["o2"]["mol"].shape[0]
         blocks = []
         for b in range(nb):
             args = [a[b * DENSE_ROWS:(b + 1) * DENSE_ROWS] for a in rows]
@@ -370,14 +494,15 @@ class ODModel:
                 acc = torch.zeros((DENSE_ROWS, dn["wt"], self.nmol),
                                   dtype=dtype, device=self.device)
                 tiles = ([tile(dn["win"], k) for k in cand]
-                         + [tile(dn["o2"], k) for k in range(n_o2)])
+                         + [tile(dn["o2"], k) for k in dn["o2_idx"]])
                 for c in tiles:
                     acc = acc + line_od_block(c, wn_c, split, *args,
                                               self.line_cfg, self.nmol,
                                               dtype)
                 cols.append(acc)
             blocks.append(torch.cat(cols, dim=1))
-        out = torch.cat(blocks)[:n, :self.nwn]
+        out = torch.cat(blocks)[:n, :len(self.wn_t)]
+        out = sum_partials(out, self.mesh and self.mesh.group("line"))
         return out.reshape(lead + out.shape[1:])
 
     def line_od(self, state: LayerState, scor_flat, engine: str = None,
@@ -423,6 +548,7 @@ class ODModel:
         dtype = self.dtype
         lead = state.p.shape                       # [..., L]
         flat = lambda a, trail: a.to(dtype).reshape((-1,) + trail)
+        m = self.mesh
         sf = line_od_forward(
             plan["cat"], plan["wn_hi"], plan["wn_lo"], plan["cand_map"],
             plan["cand_valid"], plan["nt"], plan["wt"],
@@ -430,14 +556,17 @@ class ODModel:
             flat(state.wkl, (state.wkl.shape[-1],)), flat(state.wbrodl, ()),
             scor_flat.reshape(-1, scor_flat.shape[-1]),
             cfg=self.line_cfg, n_mol=self.nmol, kernel=_KERNELS[engine],
-            rev=plan["rev"])
-        sf = sf.reshape(lead + sf.shape[1:])[..., :self.nwn, :]
+            rev=plan["rev"], grad_group=m and m.group("wn", "line"))
+        # this rank's real wavenumbers; on a line axis, the sum over the
+        # line ranks' candidate column blocks (linesum_pallas.py:636-656)
+        sf = sum_partials(sf[:, :len(self.wn_t)], m and m.group("line"))
+        sf = sf.reshape(lead + sf.shape[1:])
 
         # od = RFT * W_species * SF (modm.f90:436-438)
-        t_ = state.t.to(dtype)
+        t_ = self.wn_entry(state.t.to(dtype))
         wn_d = self.wn_t
         rft = wn_d * torch.tanh(cst.RADCT * wn_d / (2.0 * t_[..., None]))
-        wk_m = state.wkl.to(dtype)[..., :self.nmol]
+        wk_m = self.wn_entry(state.wkl.to(dtype))[..., :self.nmol]
         return rft[..., :, None] * wk_m[..., None, :] * sf
 
     def engine_split(self, state: LayerState):
@@ -455,7 +584,9 @@ class ODModel:
             self.dev_cat, state.p, state.t, state.wkl, state.wbrodl,
             scor.reshape(scor.shape[:-2] + (39 * 9,)), self.line_cfg,
             self.dtype)
-        rows = rows.reshape(-1, rows.shape[-1]).all(dim=0).cpu().numpy()
+        rows = rows.reshape(-1, rows.shape[-1]).all(dim=0).to(torch.int32)
+        rows = all_reduce(rows, self.mesh and self.mesh.group("prof"), "min")
+        rows = rows.cpu().numpy().astype(bool)
         if rows.all():
             return "lorentz", ()
         if rows.any():
@@ -473,7 +604,8 @@ class ODModel:
         od_xsec: an optional [..., L, W] tensor on the model's device added
         to the total last, as the JAX package adds its host-made
         cross-section OD (the pipeline passes `ops.xsec.xsec_od`'s OD
-        plus the TES cloud file's there).
+        plus the TES cloud file's there); on a mesh W is the full grid.
+        On a mesh every output holds this rank's columns (W = len(wn_t)).
         """
         dtype = self.dtype
         engine = self._engine(engine)
@@ -483,11 +615,13 @@ class ODModel:
 
         od_lines = self.line_od(state, scor_flat, engine=engine,
                                 lor_layers=lor_layers)    # [..., L, W, M]
-        oc = self.cont(state.p, state.t, state.wkl, state.wbrodl,
-                       dtype=dtype)
+        sw = LayerState(**{f: self.wn_entry(getattr(state, f))
+                           for f in FIELDS})
+        oc = {k: self.local_wn(v) for k, v in
+              self.cont(sw.p, sw.t, sw.wkl, sw.wbrodl, dtype=dtype).items()}
 
         # cloud liquid water (modm.f90:264)
-        o_clw = od_clw(self.wn_t, state.t[..., None], state.clw[..., None])
+        o_clw = od_clw(self.wn_t, sw.t[..., None], sw.clw[..., None])
 
         # molecule-axis sum in a FIXED sequential order, as the JAX
         # package's scan: the order does not depend on shapes or devices
@@ -499,7 +633,7 @@ class ODModel:
         total = total + oc["rayleigh"] + o_clw
         o_x = None
         if od_xsec is not None:
-            o_x = od_xsec.to(dtype)
+            o_x = self.local_wn(od_xsec.to(dtype))
             total = total + o_x
 
         return ODResult(od_total=total.movedim(-2, -1),

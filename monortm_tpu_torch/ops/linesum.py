@@ -30,6 +30,7 @@ from monortm_tpu_torch.ops.linesum_kernel import (FLAGS, PER_L, PER_LN,
 from monortm_tpu_torch.ops.lineshape import (DELTNU_CUT, LineConfig,
                                              MOL_CO2, MOL_O2, line_params)
 from monortm_tpu_torch.ops.voigt import sdvoigt, xlorentz
+from monortm_tpu_torch.parallel.distributed import shared_input
 
 __all__ = ["FLAGS", "PER_L", "PER_LN", "VOIGT_KERNEL", "line_od_forward",
            "line_sum_bwd_plain", "line_sum_plain", "precompute",
@@ -327,7 +328,8 @@ VOIGT_KERNEL = LineSumKernel("voigt", voigt=True, plain=line_sum_plain,
 def line_od_forward(tiled_cat: dict, wn_hi, wn_lo, cand_map, cand_valid,
                     nt: int, wt: int, p, t, wk, wbrod, scor_flat,
                     cfg: LineConfig, n_mol: int,
-                    kernel: LineSumKernel = VOIGT_KERNEL, rev=None):
+                    kernel: LineSumKernel = VOIGT_KERNEL, rev=None,
+                    grad_group=None):
     """Line shape-function sum sf [L, Wp, n_mol] over a block-sparse plan.
 
     tiled_cat: device catalog in the tiled line order (nu-sorted windowed
@@ -343,9 +345,12 @@ def line_od_forward(tiled_cat: dict, wn_hi, wn_lo, cand_map, cand_valid,
 
     Differentiable in p, t, wk, wbrod and scor_flat: the sum's backward
     is the adjoint kernel on CUDA tensors and the plain adjoint on CPU
-    tensors.
+    tensors.  grad_group: on a mesh, the ("wn", "line") process group
+    over which the ranks sweep their blocks of one plan; the seven
+    cotangent partials are summed over it (linesum_pallas.py:754-810).
     """
     pre = precompute(tiled_cat, p, t, wk, wbrod, scor_flat, cfg,
                      torch.float32)
+    pre.update({k: shared_input(pre[k], grad_group) for k in PER_LN})
     return kernel(pre, tiled_cat["mol"], wn_hi, wn_lo, cand_map, cand_valid,
                   nt, wt, n_mol, cfg.chi_fn, rev=rev)

@@ -1,11 +1,12 @@
 """End-to-end run pipeline: MONORTM.IN (+ MONORTM_PROF.IN, TAPE3) ->
 MONORTM.OUT, mirroring the reference driver loop (monortm.f90:316-588).
 
-A port of `monortm_tpu.pipeline.run` to one device (the CUDA card unless
-the caller asks for the CPU).  The host half is the JAX package's numpy
-code, copied: parsing, layering, profile scaling, the MONORTM.LOG echo
-and tables, chunking of equal-shape profiles and the writer.  The device
-half, per chunk of profiles stacked into one [B, nlay] state:
+A port of `monortm_tpu.pipeline.run` (the CUDA card unless the caller
+asks for the CPU; on a mesh, a card per rank).  The host half is the
+JAX package's numpy code, copied: parsing, layering, profile scaling,
+the MONORTM.LOG echo and tables, chunking of equal-shape profiles and
+the writer.  The device half, per chunk of profiles stacked into one
+[B, nlay] state:
 
 - the line engine: in float32 by default the engine split
   (`ODModel.engine_split`, on the model's device, margin 0): layers whose
@@ -31,13 +32,24 @@ Cross-sections (IXSECT >= 1) are host numpy, as in the JAX package: the
 (`ops.xsec.xsec_od`, a thread pool over profiles), and the device adds it
 to the total.
 
-Not ported (ROADMAP A11): meshes and multi-controller runs.
+Meshes (`mesh=`, the JAX package's, pipeline.py:345-356): in a
+torch.distributed run (`parallel.distributed`) every rank runs this
+function on the same inputs.  "auto" puts the ranks on a (prof, wn) mesh
+with the JAX choice of prof shards (`_auto_mesh`); one rank means one
+device.  Each chunk is padded to whole prof shards by repeating its last
+profile; each rank uploads its profile block, the model computes its
+(prof, wn[, line]) block, the engine split is taken over the whole
+chunk (`ODModel.engine_split`), and the pulled results are all-gathered
+so that every rank holds them.  Only rank 0 writes files and prints the
+profile lines.  MONORTM.OUT then has the bytes of the single-device run
+wherever the chunks take the same engine split.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -46,6 +58,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from monortm_tpu_torch import __version__
 from monortm_tpu_torch import constants as cst
@@ -70,6 +83,8 @@ from monortm_tpu_torch.models.rt import combine_boundary_np, rt_parts
 from monortm_tpu_torch.models.rt import lsum as _lsum
 from monortm_tpu_torch.ops.lineshape import LineConfig
 from monortm_tpu_torch.ops.xsec import xsec_od
+from monortm_tpu_torch.parallel import distributed
+from monortm_tpu_torch.parallel.sharding import Mesh
 from monortm_tpu_torch.types import HostState, irt_from_angle
 from monortm_tpu_torch.utils.trace import StageTimer, profile_trace
 
@@ -264,7 +279,7 @@ def _device_budget_bytes(device: torch.device) -> float:
 
 def _max_batch(nwn: int, nlay: int, nmol: int, n_lines: int,
                budget_bytes: float, itemsize: int = 4,
-               dense: bool = False) -> int:
+               dense: bool = False, n_prof_shards: int = 1) -> int:
     """Cap the profile batch of a chunk so that its device work fits.
 
     Per profile: the [W, M, L] line OD and the [W, L] totals and
@@ -274,14 +289,40 @@ def _max_batch(nwn: int, nlay: int, nmol: int, n_lines: int,
     (`models.od.dense_block_bytes`), whatever the batch.  This cap is
     what bounds a chunk on the card: the port keeps no limit on line-sum
     evaluations per call, since a CUDA launch has no execution time
-    limit."""
+    limit.  The budget is per rank; a mesh's prof axis splits the batch,
+    so the cap scales with it and is rounded down to whole prof shards
+    (the JAX package's n_prof_shards)."""
     per = nwn * nlay * (nmol + 6) * itemsize * 2
     fixed = 0
     if dense:
         fixed = dense_block_bytes(n_lines, itemsize)
     else:
         per += nlay * n_lines * itemsize * 64
-    return int(max(1, min(1024, (budget_bytes - fixed) // max(1, per))))
+    b = int(max(1, min(1024, n_prof_shards * (budget_bytes - fixed)
+                       // max(1, per))))
+    if b > n_prof_shards:
+        b -= b % n_prof_shards
+    return b
+
+
+def _auto_mesh_shape(n: int, nprof: int):
+    """The (prof, wn) shape of `_auto_mesh` over n ranks, None for one: as
+    much profile parallelism as the workload allows (the largest divisor
+    of n not above nprof), the rest of the ranks on the wavenumber axis
+    (monortm_tpu/pipeline.py:252-268)."""
+    if n <= 1:
+        return None
+    n_prof = max(d for d in range(1, n + 1)
+                 if n % d == 0 and d <= max(1, nprof))
+    return {"prof": n_prof, "wn": n // n_prof}
+
+
+def _auto_mesh(nprof: int):
+    """A (prof, wn) mesh over every rank of the torch.distributed world,
+    shaped by `_auto_mesh_shape`; None for one rank."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    shape = _auto_mesh_shape(n, nprof)
+    return None if shape is None else Mesh(shape)
 
 
 # the line-sum kernel plan's tiles, lines and wavenumbers (the JAX
@@ -297,8 +338,9 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
         fileout="MONORTM.OUT", outdir=".", *, device="cuda",
         dtype: torch.dtype = torch.float32, engine: str = "auto",
         emis_dir=None, netcdf: bool = False, profile_dir=None,
-        workers=None) -> RunResult:
-    """Run the full MONORTM.IN -> MONORTM.OUT pipeline on one device.
+        workers=None, mesh="auto") -> RunResult:
+    """Run the full MONORTM.IN -> MONORTM.OUT pipeline on one device or,
+    in a torch.distributed run, on a mesh of ranks.
 
     device: "cuda" (the default; raises without a card) or "cpu", where
     the line sums take their plain PyTorch versions.  dtype: float32 or
@@ -311,7 +353,11 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
     REFLECTION files (default: the "in" directory beside MONORTM.IN).
     workers: host processes for IATM=1 layering
     (atmos.tape5_atm.profiles_from_tape5_iter).  profile_dir: write a
-    torch.profiler trace there.
+    torch.profiler trace there.  mesh: "auto" (every rank of a
+    torch.distributed run on a (prof, wn) mesh, `_auto_mesh`; one device
+    otherwise), None (one device per process) or a
+    `parallel.sharding.Mesh` over the world's ranks; `device` is then this
+    rank's.
     """
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be float32 or float64: {dtype}")
@@ -361,6 +407,18 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
         with timer.stage("profiles+layering"):
             profiles = profiles_from_tape5(filein, cfg, workers=workers)
 
+    # the (prof, wn[, line]) mesh (every rank makes its process groups
+    # here, in one order); only rank 0 writes files
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh must be 'auto', None or a Mesh: {mesh!r}")
+        mesh = _auto_mesh(len(profiles) if profiles is not None
+                          else nprof)
+    if mesh is not None and mesh.size() == 1:
+        mesh = None
+    n_prof_shards = mesh.shape["prof"] if mesh is not None else 1
+    is_main = not dist.is_initialized() or dist.get_rank() == 0
+
     # TAPE7 (IPUNCH=1 on record 3.1, lblatm.f90:1264-1340): the layering
     # output in MONORTM_PROF.IN-compatible form, collected by the
     # producer and written before the last device work
@@ -368,11 +426,11 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
 
     model_cache: dict[int, MonoRTM] = {}
     out = RunResult(wn=wn, tb=[], rad=[], results=[])
-    writer = OutputWriter(Path(outdir) / fileout)
+    writer = OutputWriter(Path(outdir) / fileout if is_main else os.devnull)
 
     # MONORTM.LOG (unit IPR=66 in the reference, monortm.f90:322-325):
     # control-record echo, line-file stats, per-profile notes
-    log = open(Path(outdir) / "MONORTM.LOG", "w")
+    log = open(Path(outdir) / "MONORTM.LOG" if is_main else os.devnull, "w")
     log.write(" HIRAC    CNTNM    EMISS     PLOT     IATM      IOD"
               "    XSECT     ISPD     IBRD\n")
     log.write(f"{cfg.ihirac:5d}{cfg.icntnm:9d}{cfg.iemit:9d}"
@@ -494,16 +552,28 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
     results: dict[int, Any] = {}
     keep_layers = cfg.iod == 1 or netcdf
     host_bytes = [0]
-    # the chunk cap's budget, read on this (the consumer's) thread
+    # the chunk cap's budget, read on this (the consumer's) thread; on a
+    # mesh a card's memory is split among the ranks that share it, and
+    # every rank takes the smallest budget, so that all chunk alike
     budget = _device_budget_bytes(device)
+    if mesh is not None:
+        sharing = distributed.rank_devices(device).count(str(device))
+        budget = float(distributed.all_reduce(
+            torch.tensor(budget / sharing, dtype=torch.float64),
+            mesh.group(*mesh.shape), "min"))
     n_cat = len(catalog.mol)
 
-    def pull(x):
+    def pull(x, wn_sizes=None, wn_dim=1):
         """Device -> host with transfer-byte accounting (the LOG line
-        proves the default path never hauls a per-layer array)."""
+        proves the default path never hauls a per-layer array).  On a
+        mesh the rank's (prof, wn) block is all-gathered, so that every
+        rank holds the whole chunk."""
         if x is None:
             return None
-        a = x.cpu().numpy()
+        if mesh is None:
+            a = x.cpu().numpy()
+        else:
+            a = distributed.gather_to_host(x, mesh, wn_dim, wn_sizes)
         host_bytes[0] += a.nbytes
         return a
 
@@ -516,7 +586,8 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                     wn, cfg.dvset, catalog, nmol=nmol,
                     factors=cfg.factors,
                     line_cfg=LineConfig(ibrd=cfg.ibrd), device=device,
-                    dtype=dtype, wn_tile=WN_TILE, line_tile=LINE_TILE)
+                    dtype=dtype, wn_tile=WN_TILE, line_tile=LINE_TILE,
+                    mesh=mesh)
         return model_cache[nmol]
 
     def produce():
@@ -559,32 +630,41 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                 bmax_of[key] = _max_batch(
                     len(wn), key[0], key[2], n_cat, budget,
                     itemsize=np.dtype(npdt).itemsize,
-                    dense=engine == "dense")
+                    dense=engine == "dense", n_prof_shards=n_prof_shards)
             if len(buffers[key]) >= bmax_of[key]:
                 yield emit(key)
         # layering is complete here: write the TAPE7 checkpoint artifact
         # BEFORE the remaining device work so a mid-compute failure
         # cannot lose the layering output (the reference writes it from
         # LBLATM, lblatm.f90:1264-1340)
-        if punched:
+        if punched and is_main:
             write_tape7(Path(outdir) / "TAPE7", punched, xid=cfg.xid)
         for key in list(buffers):         # flush partial buffers
             yield emit(key)
 
     def host_prep(item):
         """Stack the chunk's host arrays in the compute dtype (numpy, on
-        the producer thread, while the device runs the previous chunk)."""
+        the producer thread, while the device runs the previous chunk).
+        On a mesh the chunk is padded to whole prof shards by repeating
+        its last profile (whose outputs are dropped), and the rank stacks
+        its own profile block."""
         prs = [prepped[i] for i in item["chunk"]]
+        prs += [prs[-1]] * ((-len(prs)) % n_prof_shards)
         with timer.stage("host-stack"):
-            nstack = lambda f: np.stack([f(p) for p in prs]).astype(npdt)
+            nstack = lambda f, ps: np.stack([f(p) for p in ps]).astype(npdt)
+            item["tsfc"] = nstack(lambda p: np.asarray([p["tbound"]]), prs)
+            if mesh is not None:
+                start, count = distributed.host_local_batch(len(prs), mesh)
+                prs = prs[start:start + count]
             item["host"] = HostState(
-                p=nstack(lambda p: p["st"].p), t=nstack(lambda p: p["st"].t),
-                tz=nstack(lambda p: p["st"].tz), wkl=nstack(lambda p: p["wkl"]),
-                wbrodl=nstack(lambda p: p["st"].wbrodl),
-                clw=nstack(lambda p: p["st"].clw))
-            item["tsfc"] = nstack(lambda p: np.asarray([p["tbound"]]))
+                p=nstack(lambda p: p["st"].p, prs),
+                t=nstack(lambda p: p["st"].t, prs),
+                tz=nstack(lambda p: p["st"].tz, prs),
+                wkl=nstack(lambda p: p["wkl"], prs),
+                wbrodl=nstack(lambda p: p["st"].wbrodl, prs),
+                clw=nstack(lambda p: p["st"].clw, prs))
             if item["has_x"]:
-                item["ox"] = nstack(lambda p: p["od_xsec"])
+                item["ox"] = nstack(lambda p: p["od_xsec"], prs)
         return item
 
     def dispatch(item):
@@ -620,23 +700,27 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                              state.tz[..., None, :], model.od_model.wn_t)
         item.update(parts=parts, red=red,
                     odt=od.od_total if keep_layers else None,
-                    odfull=od if netcdf else None)
+                    odfull=od if netcdf else None,
+                    wn_sizes=model.od_model.wn_sizes)
         return item
 
     def finalize(item):
         """Synchronous device->host pull, the O(W) numpy boundary
         combine and result storage."""
         with timer.stage("device->host"):
-            parts_h = RTParts(*(pull(v) for v in item["parts"]))
-            red_h = {k: ({s: pull(a) for s, a in v.items()}
-                         if isinstance(v, dict) else pull(v))
+            ws = item["wn_sizes"]
+            parts_h = RTParts(*(pull(v, ws) for v in item["parts"]))
+            red_h = {k: ({s: pull(a, ws) for s, a in v.items()}
+                         if isinstance(v, dict) else pull(v, ws))
                      for k, v in item["red"].items()}
-            odt_h = pull(item["odt"])
+            odt_h = pull(item["odt"], ws)
             od = item["odfull"]
             od_h = None if od is None else ODResult(
-                od_total=pull(od.od_total), od_by_mol=pull(od.od_by_mol),
-                oc={k: pull(v) for k, v in od.oc.items()},
-                od_clw=pull(od.od_clw), od_xsec=pull(od.od_xsec))
+                od_total=pull(od.od_total, ws),
+                od_by_mol=pull(od.od_by_mol, ws),
+                oc={k: pull(v, ws, 2) for k, v in od.oc.items()},
+                od_clw=pull(od.od_clw, ws, 2),
+                od_xsec=pull(od.od_xsec, ws, 2))
         rad_h, tb_h, tmr_h = combine_boundary_np(
             wn, parts_h.rup, parts_h.rdn, parts_h.trtot,
             parts_h.radtmr, item["tsfc"], emis, refl, item["irt"],
@@ -720,9 +804,9 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                 writer.write_profile(npr, wn, res, st, meta, pr["pwv"],
                                      pr["clw_col"], pr["tbound"],
                                      meta.angle)
-            if cfg.iod == 1:
+            if cfg.iod == 1 and is_main:
                 writer.write_layer_ods(npr, wn, res.od_layers, outdir)
-            if netcdf:  # USENETCDF (monortm_sub.F90:698-778)
+            if netcdf and is_main:  # USENETCDF (monortm_sub.F90:698-778)
                 write_netcdf(Path(outdir) / f"MONORTM.{npr:05d}.nc", npr,
                              wn, res.full, st, meta, pr["pwv"],
                              pr["clw_col"], pr["tbound"], meta.angle)
@@ -733,7 +817,8 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
             log.write(f"PROFILE {npr:5d}: NLAYRS={st.t.shape[-1]:4d} "
                       f"ANGLE={meta.angle:8.3f} IRT={pr['irt']} "
                       f"PWV={pr['pwv']:8.4f} CLW={pr['clw_col']:8.4f}\n")
-            print(f"PROCESSING PROFILE NUMBER: {npr:5d}")
+            if is_main:
+                print(f"PROCESSING PROFILE NUMBER: {npr:5d}")
     # version-stamp tail (monortm.f90:591-619, format 1000): same layout,
     # the port's module identities in the A15 fields
     try:
@@ -754,6 +839,10 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
               f"{torch.__version__}, {device})\n")
     log.write(f" HOST PULL: {host_bytes[0]} bytes device->host "
               f"(per-layer arrays pulled: {keep_layers})\n")
+    if mesh is not None:
+        shape = " x ".join(f"{k} {v}" for k, v in mesh.shape.items())
+        log.write(f" MESH: {shape} over {mesh.size()} ranks, backend "
+                  f"{dist.get_backend()}\n")
     for n, eng, lor in out.engines:
         log.write(f" ENGINE SPLIT: {n} profile(s): {eng}, {len(lor)} "
                   f"all-Lorentz layer(s)\n")

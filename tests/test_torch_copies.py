@@ -114,10 +114,55 @@ def test_xsec_code_byte_identical():
 _IMPORT = re.compile(r"^\s*(from|import)\s+monortm_tpu(\.|\s|$)", re.M)
 
 
+@pytest.mark.parametrize("n_wn,n_line,nwn", [(2, 1, 300), (4, 2, 700),
+                                            (2, 2, 40)])
+def test_dense_tiles_mesh_padding_is_the_jax_ones(n_wn, n_line, nwn):
+    """The dense engine's tiles on a mesh (`build_dense_tiles`'
+    n_wn / n_line padding and `shard_dense`) are the JAX
+    `ODModel(mesh=)` XLA engine's tiles (od.py:99, :198, :266)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from monortm_tpu.models.od import ODModel as JODModel
+    from monortm_tpu.parallel.sharding import make_mesh
+    from monortm_tpu_torch.models.od import (DENSE_LINE_TILE, DENSE_WN_TILE,
+                                             build_dense_tiles, shard_dense)
+    from monortm_tpu_torch.ops.lineshape import catalog_to_host
+
+    wn = np.linspace(0.3, 55.0, nwn)
+    kw = dict(n_h2o=5000, n_o2=40)
+    mesh = make_mesh(n_prof=1, n_wn=n_wn, n_line=n_line,
+                     devices=jax.devices("cpu")[:n_wn * n_line])
+    jm = JODModel(wn, 0.05, j_catalog(**kw), nmol=22, dtype=jnp.float64,
+                  use_pallas=False, wn_tile=DENSE_WN_TILE,
+                  line_tile=DENSE_LINE_TILE, mesh=mesh)
+    cat = synthetic_catalog_mw(**kw)
+    tiles = build_dense_tiles(cat, catalog_to_host(cat, torch.float64), wn,
+                              DENSE_WN_TILE, DENSE_LINE_TILE, n_wn, n_line)
+    np.testing.assert_array_equal(tiles["wn"], jm.wn_tiles)
+    k2 = len(tiles["o2"]["mol"])
+    assert tiles["o2_cols"] * n_line == len(jm.o2_tiles["mol"])
+    assert tiles["cols"] * n_line == jm.n_cand
+    for k, v in tiles["o2"].items():
+        np.testing.assert_array_equal(v, jm.o2_tiles[k][:k2], err_msg=k)
+    assert not np.asarray(jm.o2_tiles["valid"][k2:]).any()
+    rows, c, kk = len(tiles["cand"]) // n_wn, tiles["cols"], tiles["o2_cols"]
+    for w in range(n_wn):
+        for l in range(n_line):
+            mine = shard_dense(tiles, n_wn, n_line, w, l)
+            cs = slice(l * c, (l + 1) * c)
+            want = [jm.cand_idx[i, cs][jm.cand_mask[i, cs]].tolist()
+                    for i in range(w * rows, (w + 1) * rows)]
+            assert mine["cand"] == want
+            assert mine["o2_idx"] == [k for k in range(l * kk, (l + 1) * kk)
+                                      if k < k2]
+
+
 def test_port_sources_never_import_the_jax_package():
     files = sorted((ROOT / "monortm_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    assert ROOT / "monortm_tpu_torch" / "parallel" / "sharding.py" in files
     for path in files:
         text = path.read_text()
         assert not _IMPORT.search(text), path

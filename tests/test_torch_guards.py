@@ -5,8 +5,9 @@
   and an IATM=1 rundir, without importing jax or any module of the JAX
   package `monortm_tpu` (the machine with the GPU has no JAX, and the
   port keeps its own copies of the host modules it needs);
-- the pipeline's modules hold no import of either, read from their
-  source;
+- the pipeline's modules, the mesh modules (`parallel/`) among them,
+  hold no import of either, read from their source, and two gloo ranks
+  that take a gradient on a mesh never import either;
 - the CLI on its default device fails where there is no GPU;
 - `chip_smoke.py` fails, and prints no result, where there is no GPU;
 - importing the kernel module needs neither nvcc nor triton.
@@ -126,7 +127,9 @@ PIPELINE_MODULES = (
     "io/cldod.py", "io/tape7.py", "io/fscdxs.py", "io/output.py",
     "atmos/layering.py", "atmos/tape5_atm.py", "utils/trace.py",
     "utils/__init__.py", "models/rt.py", "models/od.py",
-    "ops/continuum.py", "ops/xsec.py", "native/__init__.py")
+    "ops/continuum.py", "ops/xsec.py", "native/__init__.py",
+    "parallel/__init__.py", "parallel/distributed.py",
+    "parallel/sharding.py", "parallel/linesharded.py")
 
 
 def test_cli_as_main_never_imports_jax(tmp_path):
@@ -136,6 +139,42 @@ def test_cli_as_main_never_imports_jax(tmp_path):
     assert res.returncode == 0, res.stderr
     assert "PROCESSING PROFILE NUMBER" in res.stdout
     assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+
+
+# one rank of a 1x2 mesh: a value_and_grad through the all-Lorentz engine,
+# then the modules the process loaded
+MESH_RANK = """
+import sys
+import numpy as np
+import torch
+from monortm_tpu_torch.models.monortm import MonoRTM
+from monortm_tpu_torch.parallel import distributed
+from monortm_tpu_torch.parallel.sharding import (make_mesh,
+                                                 shard_forward_and_grad)
+from monortm_tpu_torch.testing import synthetic_catalog_mw, synthetic_state
+distributed.init_distributed("gloo")
+mesh = make_mesh(n_prof=1, n_wn=2)
+wn = np.linspace(0.3, 55.0, 160)
+m = MonoRTM(wn, float(wn[1] - wn[0]), synthetic_catalog_mw(n_h2o=16, n_o2=8),
+            nmol=22, device="cpu", line_tile=128, mesh=mesh)
+s = synthetic_state(nlay=3, batch=2, device="cpu", dtype=torch.float32)
+emis = torch.full((160,), 0.95)
+loss, g = shard_forward_and_grad(m, mesh, 3, "lorentz")(
+    s, 288.0, emis, 1.0 - emis, torch.full((2, 160), 250.0))
+assert bool(torch.isfinite(g.t).all()) and bool((g.t != 0).any())
+torch.distributed.destroy_process_group()
+print(sorted(k for k in sys.modules
+             if k.startswith("jax") or k.split(".")[0] == "monortm_tpu"))
+"""
+
+
+def test_mesh_ranks_never_import_jax():
+    from monortm_tpu_torch.parallel.distributed import spawn
+    outs = spawn(["-c", MESH_RANK], 2, env=_env(OMP_NUM_THREADS="1"),
+                 cwd=ROOT, timeout=240)
+    for rc, text in outs:
+        assert rc == 0, text
+        assert text.strip().splitlines()[-1] == "[]", text
 
 
 def test_pipeline_sources_never_import_jax():
