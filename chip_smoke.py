@@ -97,11 +97,36 @@ on the GPU):
     and adjoint kernels against their plain versions on its own plan (the
     layers each engine took, a seeded cotangent).  Each rank's backend,
     device and launches and each mesh's wall seconds are printed.
+  14 the reference's capacity envelope: (a) each forward and adjoint
+    instantiation on 65600 flat rows of a one-tile plan (past CUDA's
+    65535 limit on gridDim.y, which the wrapper launches in blocks),
+    bitwise equal to the same rows launched in two calls, 2 CUDA calls
+    each, the rows past the limit against the plain forward; (b) the JAX
+    package's capacity check (250k H2O lines over 0.5-3000 cm^-1, 8192
+    wn, 40 layers): fewer candidate columns than a fifth of the line
+    tiles, finite OD from the VOIGT=true kernel; (c) one profile x 200
+    layers x 80000 wn x 250k lines through `pipeline.run`
+    (`monortm_tpu_torch.envelope`, the JAX tools/bench_envelope_e2e.py's
+    inputs): wall, nominal evaluations per second, HOST PULL, peak
+    memory against `_max_batch`'s estimate, the stage report, the engine
+    split, each forward kernel's launches and its time by CUDA events
+    around them (one timed wrapper call per launch), every Tb finite;
+    (d) the envelope's model rebuilt from its files (the run's grid and
+    engine split), each forward kernel against its plain version on
+    sampled blocks of its plans (the two highest- and lowest-pressure
+    rows of each engine by the first, last and two O2-band wn tiles),
+    both against the plain sum in float64, with the kernel's and plain
+    version's times and the bound of that sample grid (16 blocks, so no
+    roofline of the kernel at the envelope); (e) every 2500th wavenumber
+    as an explicit list: the float32 kernels' Tb within 0.05 K of the
+    float64 dense engine's, and the envelope run's Tb there within the
+    forward's 2e-3 K of the list's.
 
 Run from the repository root:  python3 chip_smoke.py
 (`python3 chip_smoke.py --batch-stages` builds the kernels and runs only
-phase 8's stage-by-stage chunk comparison; `--mesh-rank DIR MESH` is one
-rank of phase 13's gradient check, started by phase 13.)
+phase 8's stage-by-stage chunk comparison; `--envelope` builds them and
+runs only phase 14, printing its readings as JSON; `--mesh-rank DIR
+MESH` is one rank of phase 13's gradient check, started by phase 13.)
 Exits non-zero (and prints no result line) without a CUDA device or when
 any phase fails; a phase prints all of its comparisons before it fails.
 The line before the last two lists each kernel with its launches on the
@@ -109,13 +134,16 @@ main path (`launches` counts calls of the wrapper; an adjoint row's
 `kernels_per_launch` is the kernels its library started on the main path
 over those calls: the Voigt adjoint's two), its worst error against its plain version (max_abs_err, and max_rel_err = the
 worst err / max|ref| over the kernel's outputs), its time, its plain
-version's time and its bound.  The last line of stdout is
+version's time and its bound; phase 14 adds each kernel's CUDA calls on
+65600 rows, and each forward kernel's launches and time in the envelope
+run and its readings on the sampled blocks.  The last line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import statistics
@@ -262,6 +290,20 @@ IATM1_TAPE5 = "\n".join([
     "     0.000    30.000       0.000",
     "     0.000     3.000     3.000     0.000     0.000",
     "-1", "%%%%"]) + "\n"
+
+
+# phase 14: the reference's capacity envelope (monortm_tpu_torch.envelope,
+# 1 profile x 200 layers x 80000 wn x 250k lines).  (a) flat rows past
+# CUDA's gridDim.y limit on a one-tile plan, split in two calls for the
+# reference; (d) ENV_SAMPLE_ROWS rows at each end of each engine's
+# pressures, by the first and last wn tiles and the tiles holding
+# ENV_O2_WN (the O2 band); (e) every ENV_LIST_STEP-th wavenumber as an
+# explicit list, float32 kernels against the float64 dense engine: within
+# TB64_LIMIT (the JAX package's hardware budget, tests/test_tpu_golden.py),
+# a reading above TB_ATOL is reported
+ROWS_BIG, NLAY_ENV = 65600, 200
+ENV_SAMPLE_ROWS, ENV_O2_WN, ENV_LIST_STEP = 2, (2.0, 8.0), 2500
+TB64_LIMIT = 0.05
 
 
 def log(*a):
@@ -1272,6 +1314,329 @@ def phase13_mesh(tmp: Path, grad_inputs: dict) -> dict:
 
 
 
+def timed_call(fn):
+    """(fn(), its device time in ms by CUDA events, synchronised)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def rows_of(pre, rows):
+    """The operands of `pre` for the flat layer rows `rows` (a slice):
+    the per-(layer, line) ones sliced, the per-line ones as they are."""
+    return {k: (v[rows] if k in PER_LN else v) for k, v in pre.items()}
+
+
+def phase14_rows(dev, kernels) -> dict:
+    """Phase 14 (a): each forward and adjoint instantiation on ROWS_BIG
+    flat rows of a one-tile plan (128 wavenumbers across the centre of
+    an H2O line of the small catalog, pressures spread from 1013 to 0.02
+    hPa, so that the Voigt adjoint defers SD-Voigt lanes), bitwise
+    against the same rows in two calls; the rows past the limit against
+    the plain forward.  Returns the CUDA calls of each wrapper call."""
+    from monortm_tpu_torch.models.monortm import MonoRTM
+    from monortm_tpu_torch.ops.linesum_kernel import MAX_GRID_ROWS
+    from monortm_tpu_torch.testing import (synthetic_catalog_mw,
+                                           synthetic_state)
+    from monortm_tpu_torch.types import LayerState
+
+    cat = synthetic_catalog_mw(n_h2o=48, n_o2=16, tile=128)
+    h2o = np.nonzero(np.asarray(cat.valid) & (np.asarray(cat.mol) == 1))[0]
+    nu = float(np.asarray(cat.nu0)[h2o[len(h2o) // 2]])
+    wn = nu + np.linspace(-5e-3, 5e-3, 128)
+    small = MonoRTM(wn, float(wn[1] - wn[0]), cat, nmol=22, device=dev)
+    nlay = 4
+    st = synthetic_state(nlay=nlay, batch=ROWS_BIG // nlay, device=dev,
+                         dtype=torch.float32)
+    p = torch.logspace(np.log10(1013.0), np.log10(0.02), ROWS_BIG,
+                       device=dev).reshape(st.p.shape)
+    st = LayerState(p=p, t=st.t, tz=st.tz, wkl=st.wkl, wbrodl=st.wbrodl,
+                    clw=st.clw)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    halves = (slice(0, ROWS_BIG // 2), slice(ROWS_BIG // 2, ROWS_BIG))
+    calls = {}
+    for eng, k in kernels.items():
+        pre, mol, wh, wl, cm, cv, nt, wt, n_mol, rev = operands(
+            small, st, eng, list(range(nlay)))
+        L = pre["stild"].shape[0]
+        check(L == ROWS_BIG and L > MAX_GRID_ROWS and cm.shape[0] == 1,
+              f"(a) needs one wn tile and > {MAX_GRID_ROWS} rows: {L}, "
+              f"{tuple(cm.shape)}")
+        plan = (mol, wh, wl, cm, cv, nt, wt, n_mol)
+        n0 = k.launches
+        whole = k.launch(pre, *plan)
+        torch.cuda.synchronize()
+        calls[eng] = [k.launches - n0]
+        two = torch.cat([k.launch(rows_of(pre, h), *plan) for h in halves])
+        same = torch.equal(whole, two)
+        log(f"  (a) {eng} forward on {L} rows: {calls[eng][0]} CUDA calls; "
+            f"bitwise equal to two calls of {L // 2}: {same}")
+        if not same:
+            FAILED.append(f"(a) {eng} forward: {L} rows differ from two "
+                          f"calls")
+        tail = slice(MAX_GRID_ROWS - 64, L)
+        compare(whole[tail], k.plain(rows_of(pre, tail), *plan),
+                f"(a) {eng} forward rows {tail.start}-{L - 1} vs plain")
+        del whole, two
+        g = torch.randn((L, wh.shape[0], n_mol), generator=gen, device=dev)
+        n0 = k.bwd_launches
+        got = k.launch_bwd(pre, mol, wh, wl, *rev, nt, wt, n_mol, g)
+        got += (k.deferred,)
+        torch.cuda.synchronize()
+        calls[eng].append(k.bwd_launches - n0)
+        parts = []
+        for h in halves:
+            parts.append(k.launch_bwd(rows_of(pre, h), mol, wh, wl, *rev,
+                                      nt, wt, n_mol, g[h])
+                         + (k.deferred,))
+        names = PER_LN + ("deferred",)
+        diff = [n for i, n in enumerate(names) if got[i] is not None
+                and not torch.equal(got[i],
+                                    torch.cat([pt[i] for pt in parts]))]
+        n_def = int((got[-1] != 0).sum()) if k.voigt else 0
+        log(f"  (a) {eng} adjoint on {L} rows: {calls[eng][1]} CUDA calls; "
+            f"bitwise equal to two calls: {not diff}"
+            + (f"; {n_def} deferred (layer, line) pairs" if k.voigt else ""))
+        if diff:
+            FAILED.append(f"(a) {eng} adjoint: {diff} differ from two calls")
+        if k.voigt and not n_def:
+            FAILED.append("(a) the Voigt adjoint deferred no lane")
+        if calls[eng] != [2, 2]:
+            FAILED.append(f"(a) {eng}: {calls[eng]} CUDA calls for {L} "
+                          f"rows, expected 2 each")
+    return calls
+
+
+def phase14_capacity(dev, kernels) -> None:
+    """Phase 14 (b): the JAX package's capacity check
+    (tests/test_pallas.py::test_pallas_capacity_250k_lines_8k_wn) on the
+    card: 250k H2O lines over 0.5-3000 cm^-1, 8192 wn over 0.3-55
+    cm^-1, synthetic_state(nlay=40), the VOIGT=true kernel."""
+    from monortm_tpu_torch.models.od import ODModel
+    from monortm_tpu_torch.testing import capacity_catalog, synthetic_state
+
+    t0 = time.perf_counter()
+    cat = capacity_catalog()
+    wn = np.linspace(0.3, 55.0, 8192)
+    od = ODModel(wn, float(wn[1] - wn[0]), cat, nmol=22, device=dev)
+    n_tiles = len(od.plan["cat"]["mol"]) // od.plan["nt"]
+    n_cand = od.plan["cand_map"].shape[1]
+    log(f"  (b) capacity: {int(np.sum(cat.valid))} lines in {n_tiles} tiles "
+        f"of {od.plan['nt']}, {n_cand} candidate columns for "
+        f"{od.plan['cand_map'].shape[0]} wn tiles (limit {n_tiles / 5:.1f});"
+        f" catalog and model {time.perf_counter() - t0:.1f} s")
+    if not n_cand < n_tiles / 5:
+        FAILED.append(f"(b) {n_cand} candidate columns, not < {n_tiles} / 5")
+    st = synthetic_state(nlay=40, device=dev, dtype=torch.float32)
+    scor = od.tips.scor(st.t)
+    n0 = kernels["full"].launches
+    with torch.no_grad():
+        sf, ms = timed_call(lambda: od.line_od(
+            st, scor.reshape(40, 39 * 9), engine="full"))
+    finite = bool(torch.isfinite(sf).all())
+    log(f"  (b) VOIGT=true line OD {tuple(sf.shape)} in {ms:.3f} ms, "
+        f"{kernels['full'].launches - n0} launch, finite: {finite}, "
+        f"max {float(sf.abs().max()):.4e}")
+    if not finite or kernels["full"].launches == n0:
+        FAILED.append("(b) the capacity check's OD is not finite or the "
+                      "kernel did not launch")
+
+
+def phase14_envelope(tmp: Path, kernels, reset_counts) -> dict:
+    """Phase 14 (c)-(e) (see the module docstring): the envelope through
+    `monortm_tpu_torch.envelope.run_envelope`, each forward kernel timed
+    in it by CUDA events around its launches; the kernels against their
+    plain versions on sampled blocks of its plan, with their times and
+    bounds there; the 32-wavenumber list at float32 and float64.  Returns
+    each forward kernel's readings."""
+    from monortm_tpu_torch import envelope, pipeline
+    from monortm_tpu_torch.convert import state_from_numpy
+    from monortm_tpu_torch.io.profin import read_profiles
+    from monortm_tpu_torch.io.tape5 import Tape5Reader
+    from monortm_tpu_torch.lines import load_catalog
+    from monortm_tpu_torch.models.monortm import MonoRTM
+    from monortm_tpu_torch.ops.linesum import _contrib_voigt, sweep_plain
+    from monortm_tpu_torch.ops.lineshape import LineConfig
+    from monortm_tpu_torch.ops.linesum_lorentz import _contrib_lorentz
+
+    d = tmp / "envelope"
+    events = {e: [] for e in kernels}
+
+    def timed(k, e):
+        def launch(*a):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = type(k).launch(k, *a)
+            end.record()
+            events[e].append((start, end))
+            return out
+        return launch
+
+    reset_counts()
+    for e, k in kernels.items():
+        k.launch = timed(k, e)
+    try:
+        env = envelope.run_envelope(d, device="cuda", echo=log)
+    finally:
+        for k in kernels.values():
+            del k.launch
+    launches = {e: k.launches for e, k in kernels.items()}
+    ms = {e: sum(a.elapsed_time(b) for a, b in v)
+          for e, v in events.items()}
+    res = env["result"]
+    (n, split, lor), = res.engines
+    log(f"  (c) envelope: engine split {split}, {len(lor)} of {NLAY_ENV} "
+        f"rows all-Lorentz; forward launches {launches}; kernel time by "
+        f"CUDA events around the wrapper's calls {ms} ms")
+    if not env["tb_finite"]:
+        FAILED.append("(c) the envelope's Tb is not all finite")
+    if not all(launches.values()):
+        FAILED.append(f"(c) a forward kernel did not launch: {launches}")
+    # at <= MAX_GRID_ROWS rows a wrapper call is one CUDA call, so every
+    # counted launch lies inside a timed pair of events
+    timed_calls = {e: len(v) for e, v in events.items()}
+    if timed_calls != launches:
+        FAILED.append(f"(c) timed wrapper calls {timed_calls} are not the "
+                      f"launches {launches}")
+
+    # (d) the envelope's model, built from its files as pipeline.run
+    # builds it
+    prof = read_profiles(d / "MONORTM_PROF.IN")[0]
+    cfg = Tape5Reader(d / "MONORTM.IN").read_block()
+    model = MonoRTM(
+        cfg.wn, cfg.dvset,
+        load_catalog(d / "TAPE3", float(cfg.wn[0]), float(cfg.wn[-1]),
+                     tile=pipeline.LINE_TILE),
+        nmol=prof.meta.nmol, line_cfg=LineConfig(ibrd=cfg.ibrd),
+        device="cuda", wn_tile=pipeline.WN_TILE,
+        line_tile=pipeline.LINE_TILE)
+    state = state_from_numpy(prof.state, "cuda", torch.float32)
+    wn = res.wn
+    same = (np.array_equal(cfg.wn, wn) and sorted(
+        model.engine_split(state)[1]) == sorted(lor))
+    if not same:
+        FAILED.append("(d) the rebuilt model's grid or engine split is not "
+                      "the envelope run's")
+    n_lines = len(model.od_model.plan["cat"]["mol"])
+    est = pipeline._profile_bytes(len(wn), NLAY_ENV, prof.meta.nmol, n_lines)
+    log(f"  (c) _max_batch's estimate per profile {est / 2**30:.3f} GiB "
+        f"against the measured peak {env['peak_bytes'] / 2**30:.3f} GiB: "
+        f"{est / env['peak_bytes']:.2f}x")
+
+    # (d) the kernels against their plain versions on sampled blocks
+    lor = list(lor)
+    voigt = [i for i in range(NLAY_ENV) if i not in set(lor)]
+    o2_tiles = [int(np.searchsorted(wn, w)) // 128 for w in ENV_O2_WN]
+    tiles = [0, *o2_tiles, -(-len(wn) // 128) - 1]
+    out = {}
+    for eng, layers in (("full", voigt), ("lorentz", lor)):
+        k = kernels[eng]
+        rows = sorted(set(layers[:ENV_SAMPLE_ROWS]
+                          + layers[-ENV_SAMPLE_ROWS:]))
+        args = operands(model, state, eng, rows)
+        pre, mol, wh, wl, cm, cv, nt, wt, n_mol, _ = args
+        cols = torch.cat([torch.arange(i * wt, (i + 1) * wt) for i in tiles]
+                         ).to(wh.device)
+        ix = torch.as_tensor(tiles, device=cm.device)
+        sub = (pre, mol, wh[cols].contiguous(), wl[cols].contiguous(),
+               cm[ix].contiguous(), cv[ix].contiguous(), nt, wt, n_mol)
+        got = k(*sub)
+        ref, plain_ms = timed_call(lambda: k.plain(*sub))
+        err, rel = compare(got, ref, f"(d) {eng} rows {rows} (p "
+                           f"{float(state.p[rows[0]]):.4g}-"
+                           f"{float(state.p[rows[-1]]):.4g} hPa) x wn tiles "
+                           f"{tiles}")
+        # both against the plain sum in float64 (float32's branches)
+        d64 = lambda v: v.double() if torch.is_tensor(v) else v
+        pre64 = {n: d64(v) for n, v in pre.items()}
+        contrib = (functools.partial(_contrib_voigt, f32_fallback=True)
+                   if k.voigt else _contrib_lorentz)
+        ref64 = sweep_plain(contrib, pre64, mol, *map(d64, sub[2:4]),
+                            *sub[4:9])
+        scale = float(ref64.abs().max())
+        e64 = {name: float((v.double() - ref64).abs().max()) / scale
+               for name, v in (("kernel", got), ("plain float32", ref))}
+        log(f"  (d) {eng} against the plain sum in float64, err/max: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in e64.items()))
+        sub_ms = cuda_ms(lambda: k(*sub), 5)
+        t0 = time.perf_counter()
+        counts, _, by_class = lane_counts(*sub, voigt=k.voigt)
+        t_count = time.perf_counter() - t0
+        b_ms, b_by = bound_by_class("fwd", k.voigt, counts, by_class,
+                                    line_bytes(sub, "fwd", k.voigt))
+        n_blocks = int(cv.sum())
+        log(f"  (d) {eng} on the sample ({len(rows)} rows x "
+            f"{int(cv[ix].sum())} of the plan's {n_blocks} candidate "
+            f"blocks): {sub_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; lanes lor/lor+k2/sd/sd+k2 {counts}); "
+            f"lane_counts took {t_count:.2f} s here, ~"
+            f"{t_count * n_blocks / int(cv[ix].sum()):.0f} s for the whole "
+            f"plan (its bound at the envelope is not counted)")
+        out[eng] = {"envelope_launches": launches[eng],
+                    "envelope_ms": ms[eng],
+                    "envelope_sample": {
+                        "rows": rows, "wn_tiles": tiles, "ms": sub_ms,
+                        "plain_ms": plain_ms, "sample_bound_ms": b_ms,
+                        "sample_bound_by": b_by, "max_abs_err": err,
+                        "max_rel_err": rel,
+                        "kernel_vs_float64": e64["kernel"],
+                        "plain_vs_float64": e64["plain float32"]}}
+    del model
+
+    # (e) every ENV_LIST_STEP-th wavenumber, float32 against float64
+    ld = tmp / "envelope_list"
+    ld.mkdir()
+    (ld / "MONORTM.IN").write_text(envelope.tape5_text(
+        wn_list=wn[::ENV_LIST_STEP]))
+    files = dict(filein=ld / "MONORTM.IN", fileprof=d / "MONORTM_PROF.IN",
+                 hfile=d / "TAPE3")
+    tb = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("float64", torch.float64)):
+        r, wall, _ = drive(files, ld / name, dtype=dtype)
+        tb[name] = r.tb[0]
+        log(f"  (e) {len(r.wn)} listed wn at {name}: {wall:.3f} s, engine "
+            f"split {[(n, e, len(lo)) for n, e, lo in r.engines]}")
+    err64 = float(np.abs(tb["float32"].astype(np.float64)
+                         - tb["float64"]).max())
+    err_env = float(np.abs(res.tb[0][::ENV_LIST_STEP].astype(np.float64)
+                           - tb["float32"]).max())
+    log(f"  (e) Tb float32 kernels vs float64 dense: max_abs_err="
+        f"{err64:.4e} K (limit {TB64_LIMIT} K"
+        + (f"; above {TB_ATOL} K: float32 accumulation over the envelope's "
+           f"lines per wavenumber" if err64 > TB_ATOL else "") + ")")
+    log(f"  (e) the envelope run's Tb at those wavenumbers vs the list's "
+        f"float32 Tb: max_abs_err={err_env:.4e} K")
+    if not err64 <= TB64_LIMIT:
+        FAILED.append(f"(e) Tb {err64} K from float64, over {TB64_LIMIT}")
+    if not err_env <= TB_ATOL:
+        FAILED.append(f"(e) the envelope run's Tb is {err_env} K from the "
+                      f"list run's, over {TB_ATOL}")
+    for e in out:
+        out[e]["tb_vs_float64_K"] = err64
+    return out
+
+
+def phase14(tmp: Path, dev, kernels, reset_counts) -> dict:
+    """Phase 14 (see the module docstring): (a) row blocks, (b) the
+    capacity check, (c)-(e) the envelope; returns the readings for the
+    kernels line, by kernel name."""
+    out = {}
+    calls = phase14_rows(dev, kernels)
+    phase14_capacity(dev, kernels)
+    env = phase14_envelope(tmp, kernels, reset_counts)
+    for eng, k in kernels.items():
+        out[f"linesum_{k.name}"] = {**env[eng],
+                                    "row_block_calls": calls[eng][0]}
+        out[f"linesum_bwd_{k.name}"] = {"row_block_calls": calls[eng][1]}
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -1412,6 +1777,14 @@ def main(argv=None) -> int:
     small = MonoRTM(small_wn, float(small_wn[1] - small_wn[0]),
                     synthetic_catalog_mw(n_h2o=48, n_o2=16, tile=128),
                     nmol=22, device=dev)
+    if argv == ["--envelope"]:
+        # phase 14 alone
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            log("phase 14 the reference's capacity envelope")
+            env = phase14(Path(tmp), dev, kernels, reset_counts)
+        phase_done(14)
+        print(json.dumps(env))
+        return 0
     cat = synthetic_catalog_mw(n_h2o=2048, n_o2=1024, tile=512)
     n_lines = int(np.sum(np.asarray(cat.valid)))
     wn = np.linspace(0.3, 55.0, NWN)
@@ -1808,8 +2181,17 @@ def main(argv=None) -> int:
         results[f"linesum_bwd_{k.name}"]["mesh_launches"] = {
             m: [lc[k.name][1] for lc in v]
             for m, v in mesh_launches.items() if "grad" in m}
-    tmp_dir.cleanup()
     phase_done(13)
+
+    # ---- phase 14: the reference's capacity envelope --------------------
+    log(f"phase 14 the reference's capacity envelope: row blocks past "
+        f"{ROWS_BIG - 65} rows, the 250k-line x 8192-wn capacity check, 1 "
+        f"profile x {NLAY_ENV} layers x 80000 wn x 250k lines through "
+        f"pipeline.run, the kernels on sampled blocks, Tb against float64")
+    for name, r in phase14(tmp, dev, kernels, reset_counts).items():
+        results[name].update(r)
+    tmp_dir.cleanup()
+    phase_done(14)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1824,7 +2206,8 @@ def main(argv=None) -> int:
           f"incomplete kernel results: {rows}")
     extra = ("bound_ms_flat_count", "bound_ms_dual_count", "registers",
              "blocks_per_sm", "kernels_per_launch", "pipeline_launches",
-             "mesh_launches")
+             "mesh_launches", "envelope_launches", "envelope_ms",
+             "envelope_sample", "tb_vs_float64_K", "row_block_calls")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi.stdout.strip().splitlines()[0])

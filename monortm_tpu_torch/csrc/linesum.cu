@@ -33,8 +33,10 @@
 //     consecutive lines of one class and molecule: the flag tests fold
 //     away and the shapes a class does not read are never formed (CO2 no
 //     k2; the window test comes before any shape);
-//   - the running sum of the current molecule stays in a register and
-//     goes to device memory only where the molecule changes;
+//   - each run of lines of one molecule is summed in a register and
+//     added to its row in device memory where the molecule changes and
+//     at the end of each staged chunk: a sum of per-chunk partial sums,
+//     whose rounding grows with the chunks, not the lines (fwd_chunk);
 //   - NW wavenumbers per thread share each staged line's shared loads and
 //     the loop's control;
 //   - the SD-Voigt lane is a call (sd_lane_sls, not inlined), so that its
@@ -42,7 +44,8 @@
 // Division, sqrt, exp, expm1, sin and cos stay IEEE (no fast math), and
 // multiply-adds are not contracted (-fmad=false): the kernel rounds like
 // the plain PyTorch version beside it, and every sum is bitwise the one
-// the unhoisted evaluation gives (tests/test_torch_fwd_math.py).
+// the unhoisted evaluation gives, summed in the same runs
+// (tests/test_torch_fwd_math.py).
 //
 // Work split: one block per (sub-tile of THREADS * NW wavenumbers of a
 // plan tile, layer); thread t owns wavenumbers t, t + THREADS, ... of the
@@ -51,7 +54,8 @@
 // lines in chunks.  The sums of a wavenumber live in its row of `out`,
 // which only its thread reads and writes: no atomics and no split over
 // lines, so the summation order is fixed (each (wavenumber, molecule) sum
-// takes its lines in catalog order) and results are reproducible.
+// takes its lines in catalog order, in runs within a chunk) and results
+// are reproducible.
 //
 // The line shapes and the per-(wavenumber, line) evaluation live in
 // linesum_math.cuh, shared with the adjoint kernel (linesum_bwd.cu).
@@ -106,7 +110,7 @@ __global__ void __launch_bounds__(Shape<VOIGT>::THREADS) linesum_kernel(
 
     // this thread's wavenumbers; a lane past the tile's end takes the
     // last one's value and writes nothing
-    float whi[NW], wlo[NW], acc[NW];
+    float whi[NW], wlo[NW];
     float* rows[NW];
     float lo = INFINITY, hi = -INFINITY;
 #pragma unroll
@@ -122,7 +126,6 @@ __global__ void __launch_bounds__(Shape<VOIGT>::THREADS) linesum_kernel(
                          : nullptr;
         if (rows[r])
             for (int m = 0; m < n_mol; ++m) rows[r][m] = 0.0f;
-        acc[r] = 0.0f;
     }
     // the block's range of wavenumbers, for fwd_key
     for (int o = 16; o > 0; o >>= 1) {
@@ -141,7 +144,6 @@ __global__ void __launch_bounds__(Shape<VOIGT>::THREADS) linesum_kernel(
     }
 
     const size_t row = static_cast<size_t>(l) * n_lines;
-    int cur_m = -1;
     for (int j = 0; j < n_cand; ++j) {
         if (!cvalid[i * n_cand + j]) continue;
         const int k = cmap[i * n_cand + j];
@@ -188,11 +190,9 @@ __global__ void __launch_bounds__(Shape<VOIGT>::THREADS) linesum_kernel(
             for (int v = 0; v < nq / 32; ++v) n_kept += s_cnt[v];
             if (t == 0) s_line[n_kept].key = -1;
             __syncthreads();
-            fwd_chunk<VOIGT, NW>(s_line, s_sd, n_kept, whi, wlo, acc, cur_m,
-                                 rows);
+            fwd_chunk<VOIGT, NW>(s_line, s_sd, n_kept, whi, wlo, rows);
         }
     }
-    fwd_flush<NW>(acc, cur_m, rows);
 }
 
 // blocks per plan tile of wt wavenumbers

@@ -813,8 +813,9 @@ __device__ __forceinline__ void deferred_tile(const float* whi,
 // molecule.  The sum of each (wavenumber, molecule) takes the same adds of
 // the same values, formed by the same float operations, in the same order
 // as the unhoisted evaluation (pair_of, shapes, branch_trees, then
-// acc[m] += sls * stild, line by line): the results are bitwise those of
-// that loop (tests/test_torch_fwd_math.py holds them so).
+// part += sls * stild, line by line, each run's part added to the sum at
+// the run's end, fwd_chunk): the results are bitwise those of that loop
+// (tests/test_torch_fwd_math.py holds them so).
 
 // One staged line in one layer: the raw operands the walk reads and what
 // it would otherwise recompute at every wavenumber.
@@ -982,40 +983,49 @@ struct FwdRun {
     }
 };
 
-// Writes the running sums acc[r] of molecule cur_m back to rows[r].
+// Adds the partial sums acc[r] of molecule cur_m to its sums in rows[r]
+// and clears them.
 template <int NW>
 __device__ __forceinline__ void fwd_flush(float* acc, int cur_m,
                                           float* const* rows) {
     if (cur_m < 0) return;
 #pragma unroll
-    for (int r = 0; r < NW; ++r)
-        if (rows[r]) rows[r][cur_m] = acc[r];
+    for (int r = 0; r < NW; ++r) {
+        if (rows[r]) rows[r][cur_m] += acc[r];
+        acc[r] = 0.0f;
+    }
 }
 
 // One thread's walk over the n lines staged in s / sd, their keys in
 // s[].key (none -1) and s[n].key = -1, for its NW wavenumbers
-// whi[r] + wlo[r].  acc[r] is the running sum of molecule cur_m (-1: none
-// yet) at wavenumber r, whose sums live at rows[r][0, n_mol) (null: a
-// lane without a wavenumber): the sum is written back and the next
-// molecule's read where the molecule changes, which the catalog's order
-// makes rare.  Call fwd_flush after the last chunk.
+// whi[r] + wlo[r], whose sums live at rows[r][0, n_mol) (null: a lane
+// without a wavenumber).  Each run of consecutive lines of one molecule
+// is summed in a register from zero, and that partial sum is added to
+// the molecule's sum where the molecule changes and at the end of the
+// chunk.  So a (wavenumber, molecule) sum adds, in catalog order,
+// partial sums of at most one chunk of lines each: its rounding error
+// grows with the number of chunks, not of lines (one running sum over
+// the ~2e5 lines per wavenumber of the reference's capacity envelope
+// drifted to 1.6e-4 of the largest sum from the plain version).
 template <bool VOIGT, int NW>
 __device__ __forceinline__ void fwd_chunk(const FwdLine* s, const FwdSd* sd,
                                           int n, const float* whi,
-                                          const float* wlo, float* acc,
-                                          int& cur_m, float* const* rows) {
-    int q = 0;
+                                          const float* wlo,
+                                          float* const* rows) {
+    float acc[NW];
+#pragma unroll
+    for (int r = 0; r < NW; ++r) acc[r] = 0.0f;
+    int cur_m = -1, q = 0;
     while (q < n) {
         const int key = s[q].key;
         const int m = key >> 3;
         if (m != cur_m) {
             fwd_flush<NW>(acc, cur_m, rows);
-#pragma unroll
-            for (int r = 0; r < NW; ++r) acc[r] = rows[r] ? rows[r][m] : 0.0f;
             cur_m = m;
         }
         for_class(key & 7, FwdRun<VOIGT, NW>{s, sd, whi, wlo, acc, q});
     }
+    fwd_flush<NW>(acc, cur_m, rows);
 }
 
 #undef R

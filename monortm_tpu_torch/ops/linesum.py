@@ -230,19 +230,21 @@ def sweep_plain(contrib, pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
                 nt: int, wt: int, n_mol: int, chi_fn=None):
     """The plain line sum: for each wavenumber tile, walk its valid
     candidate slots in order, evaluate `contrib` on the [L, wt, nt]
-    block and contract it with the line -> molecule one-hot."""
+    block and contract it with the line -> molecule one-hot, in the
+    operands' dtype (float32 on the model's path; float64 operands give
+    a reference)."""
     L, n = pre["stild"].shape
-    dev = pre["stild"].device
+    dev, dtype = pre["stild"].device, pre["stild"].dtype
     onehot = ((mol[:, None] - 1) == torch.arange(n_mol, device=dev)
-              ).to(torch.float32)                             # [N, n_mol]
+              ).to(dtype)                                     # [N, n_mol]
     cm = cand_map.cpu().numpy()
     cv = cand_valid.cpu().numpy()
     n_wt = cm.shape[0]
-    out = torch.zeros((L, n_wt * wt, n_mol), dtype=torch.float32, device=dev)
+    out = torch.zeros((L, n_wt * wt, n_mol), dtype=dtype, device=dev)
     for i in range(n_wt):
         ws = slice(i * wt, (i + 1) * wt)
         wh, wl = wn_hi[ws][None, :, None], wn_lo[ws][None, :, None]
-        acc = torch.zeros((L, wt, n_mol), dtype=torch.float32, device=dev)
+        acc = torch.zeros((L, wt, n_mol), dtype=dtype, device=dev)
         for j in range(cm.shape[1]):
             if not cv[i, j]:
                 continue

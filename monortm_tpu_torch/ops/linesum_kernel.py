@@ -17,6 +17,12 @@ adjoint, whose entry point launches two kernels (the sweep over the
 Lorentz lanes and the pass over the SD-Voigt lanes it deferred), counts
 one.  The sum is a `torch.autograd.Function` whose backward is the
 adjoint kernel.
+
+Both kernels put the flat layer rows on gridDim.y, which CUDA caps at
+MAX_GRID_ROWS, so a wrapper calls the entry point once per block of at
+most that many rows (`row_blocks`), each on its rows' slices of the
+per-row operands; rows are independent, so the result is bitwise that
+of one call, and each call counts as a launch.
 """
 
 from __future__ import annotations
@@ -45,6 +51,16 @@ PER_LN = ("shift", "stild", "hw", "ad", "k3v", "ya", "yb")
 PER_L = ("nu_hi", "nu_lo", "sdep")
 FLAGS = ("o2", "co2", "cpl", "xf1", "xf15", "valid")
 FLAG_BITS = {k: 1 << b for b, k in enumerate(FLAGS)}
+# CUDA's limit on gridDim.y, which carries the kernels' flat layer rows
+MAX_GRID_ROWS = 65535
+
+
+def row_blocks(n_rows: int) -> list[tuple[int, int]]:
+    """[r0, r1) blocks of at most MAX_GRID_ROWS rows covering [0, n_rows)
+    in order: one call of a kernel's entry point each (for no rows, one
+    empty block, whose call returns at once)."""
+    return [(r0, min(r0 + MAX_GRID_ROWS, n_rows))
+            for r0 in range(0, max(n_rows, 1), MAX_GRID_ROWS)]
 
 
 def _nvcc() -> str:
@@ -241,8 +257,8 @@ class LineSumKernel:
     def launch(self, pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
                nt: int, wt: int, n_mol: int):
         """The forward CUDA launch: checks every operand, allocates the
-        output, launches on the current stream and raises if the launch
-        failed."""
+        output, launches on the current stream, one call per block of
+        `row_blocks`, and raises if a call failed."""
         dev = pre["stild"].device
         L, n, bits, mol0 = _line_operands(pre, mol, nt)
         _check_maps(dev, ("cand_map", "cand_valid"), cand_map, cand_valid)
@@ -251,22 +267,25 @@ class LineSumKernel:
         out = torch.empty((L, n_wt * wt, n_mol), dtype=torch.float32,
                           device=dev)
         ptr = lambda v: v.data_ptr()
-        rc = _Library.get("forward")(
-            int(self.voigt), ptr(cand_map), ptr(cand_valid), n_wt, n_cand,
-            ptr(wn_hi), ptr(wn_lo), *(ptr(pre[k]) for k in PER_L),
-            ptr(bits), ptr(mol0), *(ptr(pre[k]) for k in PER_LN),
-            L, n, nt, wt, n_mol, ptr(out), _stream(dev))
-        self.launches += 1
-        if rc != 0:
-            raise RuntimeError(f"{self.name} line-sum kernel launch failed: "
-                               f"CUDA error {rc}")
+        fn, stream = _Library.get("forward"), _stream(dev)
+        for r0, r1 in row_blocks(L):
+            rc = fn(int(self.voigt), ptr(cand_map), ptr(cand_valid), n_wt,
+                    n_cand, ptr(wn_hi), ptr(wn_lo),
+                    *(ptr(pre[k]) for k in PER_L), ptr(bits), ptr(mol0),
+                    *(ptr(pre[k][r0:r1]) for k in PER_LN), r1 - r0, n, nt,
+                    wt, n_mol, ptr(out[r0:r1]), stream)
+            self.launches += 1
+            if rc != 0:
+                raise RuntimeError(f"{self.name} line-sum kernel launch "
+                                   f"failed: CUDA error {rc}")
         return out
 
     def launch_bwd(self, pre, mol, wn_hi, wn_lo, rev_map, rev_valid,
                    nt: int, wt: int, n_mol: int, g):
         """The adjoint CUDA launch for a cotangent g [L, Wp, n_mol]:
         returns the seven cotangents in PER_LN order (None for ad and k3v
-        with VOIGT=false, whose sum reads neither).  With VOIGT=true the
+        with VOIGT=false, whose sum reads neither), one call per block of
+        `row_blocks`.  With VOIGT=true the
         call's deferral words stay in `.deferred` (int32 [L, N], a bit per
         reverse-map slot in which the line has SD-Voigt lanes) until the
         next call."""
@@ -289,16 +308,20 @@ class LineSumKernel:
         self.deferred = (torch.empty((L, n), dtype=torch.int32, device=dev)
                          if self.voigt else None)
         ptr = lambda v: 0 if v is None else v.data_ptr()
-        rc = _Library.get("backward")(
-            int(self.voigt), ptr(rev_map), ptr(rev_valid), k_tiles, n_rev,
-            n_wt, ptr(wn_hi), ptr(wn_lo), *(ptr(pre[k]) for k in PER_L),
-            ptr(bits), ptr(mol0), *(ptr(pre[k]) for k in PER_LN), ptr(g),
-            L, n, nt, wt, n_mol, *(ptr(outs.get(k)) for k in PER_LN),
-            ptr(self.deferred), _stream(dev))
-        self.bwd_launches += 1
-        if rc != 0:
-            raise RuntimeError(f"{self.name} line-sum adjoint kernel launch "
-                               f"failed: CUDA error {rc}")
+        fn, stream = _Library.get("backward"), _stream(dev)
+        for r0, r1 in row_blocks(L):
+            rows = lambda v: None if v is None else v[r0:r1]
+            rc = fn(int(self.voigt), ptr(rev_map), ptr(rev_valid), k_tiles,
+                    n_rev, n_wt, ptr(wn_hi), ptr(wn_lo),
+                    *(ptr(pre[k]) for k in PER_L), ptr(bits), ptr(mol0),
+                    *(ptr(pre[k][r0:r1]) for k in PER_LN), ptr(g[r0:r1]),
+                    r1 - r0, n, nt, wt, n_mol,
+                    *(ptr(rows(outs.get(k))) for k in PER_LN),
+                    ptr(rows(self.deferred)), stream)
+            self.bwd_launches += 1
+            if rc != 0:
+                raise RuntimeError(f"{self.name} line-sum adjoint kernel "
+                                   f"launch failed: CUDA error {rc}")
         return tuple(outs.get(k) for k in PER_LN)
 
     def fwd_info(self, nt: int, wt: int, n_mol: int) -> dict:

@@ -277,27 +277,34 @@ def _device_budget_bytes(device: torch.device) -> float:
     return 2.0e9
 
 
+def _profile_bytes(nwn: int, nlay: int, nmol: int, n_lines: int,
+                   itemsize: int = 4, dense: bool = False) -> int:
+    """Device bytes `_max_batch` budgets per profile: the [W, M, L] line
+    OD and the [W, L] totals and continua (the JAX package's estimate) at
+    `itemsize` bytes, plus for the kernels the prologue's per-(layer,
+    line) operands, ~64 arrays live at once (the dense engine's block is
+    a fixed cost instead)."""
+    per = nwn * nlay * (nmol + 6) * itemsize * 2
+    if not dense:
+        per += nlay * n_lines * itemsize * 64
+    return per
+
+
 def _max_batch(nwn: int, nlay: int, nmol: int, n_lines: int,
                budget_bytes: float, itemsize: int = 4,
                dense: bool = False, n_prof_shards: int = 1) -> int:
     """Cap the profile batch of a chunk so that its device work fits.
 
-    Per profile: the [W, M, L] line OD and the [W, L] totals and
-    continua (the JAX package's estimate) at `itemsize` bytes, plus for
-    the kernels the prologue's per-(layer, line) operands, ~64 arrays live
-    at once.  The dense engine instead holds one block of fixed shape
-    (`models.od.dense_block_bytes`), whatever the batch.  This cap is
-    what bounds a chunk on the card: the port keeps no limit on line-sum
-    evaluations per call, since a CUDA launch has no execution time
-    limit.  The budget is per rank; a mesh's prof axis splits the batch,
-    so the cap scales with it and is rounded down to whole prof shards
-    (the JAX package's n_prof_shards)."""
-    per = nwn * nlay * (nmol + 6) * itemsize * 2
-    fixed = 0
-    if dense:
-        fixed = dense_block_bytes(n_lines, itemsize)
-    else:
-        per += nlay * n_lines * itemsize * 64
+    Per profile `_profile_bytes`; the dense engine also holds one block
+    of fixed shape (`models.od.dense_block_bytes`), whatever the batch.
+    This cap is what bounds a chunk on the card: the port keeps no limit
+    on line-sum evaluations per call, since a CUDA launch has no
+    execution time limit, and the kernels' wrapper launches any number
+    of layer rows.  The budget is per rank; a mesh's prof axis splits the
+    batch, so the cap scales with it and is rounded down to whole prof
+    shards (the JAX package's n_prof_shards)."""
+    per = _profile_bytes(nwn, nlay, nmol, n_lines, itemsize, dense)
+    fixed = dense_block_bytes(n_lines, itemsize) if dense else 0
     b = int(max(1, min(1024, n_prof_shards * (budget_bytes - fixed)
                        // max(1, per))))
     if b > n_prof_shards:

@@ -78,6 +78,41 @@ def synthetic_catalog_mw(n_h2o: int = 64, n_o2: int = 48, seed: int = 0,
     return pack(resolve(group(raw)), tile=tile)
 
 
+CAPACITY_LINES = 250_000
+CAPACITY_SEED = 11
+CAPACITY_TILE = 256
+
+
+def capacity_catalog(raw_lines: bool = False) -> PackedCatalog | RawLines:
+    """The reference's design capacity of one molecule (250k lines,
+    lnfl_mod.f90:5): CAPACITY_LINES H2O lines spread evenly over
+    0.5-3000 cm^-1, the recipe of the JAX package's capacity check
+    (tests/test_pallas.py::test_pallas_capacity_250k_lines_8k_wn), packed
+    to CAPACITY_TILE (the raw lines with `raw_lines`)."""
+    n = CAPACITY_LINES
+    rng = np.random.default_rng(CAPACITY_SEED)
+    nu = np.sort(rng.uniform(0.5, 3000.0, n))
+    raw = RawLines(
+        vnu=nu,
+        sp=10 ** rng.uniform(-27, -23, n).astype(np.float32),
+        alfa=rng.uniform(0.04, 0.1, n).astype(np.float32),
+        epp=rng.uniform(0, 700, n).astype(np.float32),
+        mol=(1 + 100 * 1) * np.ones(n, np.int32),
+        hwhm=rng.uniform(0.3, 0.5, n).astype(np.float32),
+        tmpalf=rng.uniform(0.6, 0.8, n).astype(np.float32),
+        pshift=rng.uniform(-0.02, 0.02, n).astype(np.float32),
+        iflg=np.zeros(n, np.int32),
+        brd_mol_flg=np.zeros((n, 7), np.int32),
+        brd_mol_hw=np.zeros((n, 7), np.float32),
+        brd_mol_tmp=np.zeros((n, 7), np.float32),
+        brd_mol_shft=np.zeros((n, 7), np.float32),
+        speed_dep=np.zeros(n, np.float32),
+    )
+    if raw_lines:
+        return raw
+    return pack(resolve(group(raw)), tile=CAPACITY_TILE)
+
+
 # minimal IATM=0 run inputs for pipeline-level tests (a copy of the JAX
 # package's): 4 explicit wavenumbers (V1<0 list option), NMOL=7, downwelling
 _MIN_TAPE5 = """\

@@ -6,11 +6,14 @@ below emulates one block of `csrc/linesum.cu`: it stages the lines chunk
 by chunk as the kernel does (`fwd_key` drops the lines that add nothing to
 the block's wavenumbers, `fwd_line` / `fwd_sd` hoist the rest, packed in
 order), then runs `fwd_chunk` for each of the block's threads with its NW
-wavenumbers (the loop per class of the branch trees, the running sum of
-the current molecule kept apart and written back where the molecule
-changes) and `fwd_flush` at the end.  The sums must equal, bit for bit,
-those of the unhoisted loop the kernel ran before: `pair_of` ->
-`shapes<VOIGT>` -> `branch_trees` -> `acc[m] += sls * stild`, line by line.
+wavenumbers (the loop per class of the branch trees, each run of one
+molecule summed from zero and added to the molecule's sum where the
+molecule changes and at the chunk's end).  The sums must equal, bit for
+bit, those of the unhoisted loop the kernel ran before, summed in the
+same runs: `pair_of` -> `shapes<VOIGT>` -> `branch_trees` ->
+`part += sls * stild`, line by line, each part added to `acc[m]` where a
+kept line (`fwd_key`) of another molecule starts a run and at the chunk's
+end.
 
 The lines cover every class of the branch trees, the mirror term, pairs
 inside and outside the window (uncoupled O2 outside it, where the loop
@@ -55,29 +58,52 @@ struct Raw {
     int mol;
 };
 
-// the forward kernel's loop before hoisting, at each wavenumber
+// the forward kernel's loop before hoisting, at each wavenumber, summed
+// in the kernel's runs: a run is the consecutive lines of one molecule
+// that fwd_key keeps for the block (a dropped line adds 0 * stild in
+// this loop) within a chunk of `chunk` lines
 template <bool VOIGT>
 static void reference(const std::vector<float>& whi,
                       const std::vector<float>& wlo,
-                      const std::vector<Raw>& lines, int n_mol,
+                      const std::vector<Raw>& lines, int n_mol, int chunk,
                       std::vector<float>& out, long* stats) {
+    float lo = INFINITY, hi = -INFINITY;
+    for (float w : whi) {
+        lo = fminf(lo, w);
+        hi = fmaxf(hi, w);
+    }
+    const int n_lines = static_cast<int>(lines.size());
     for (size_t w = 0; w < whi.size(); ++w) {
         float* acc = &out[w * n_mol];
         for (int m = 0; m < n_mol; ++m) acc[m] = 0.0f;
-        for (const Raw& r : lines) {
-            const Line& ln = r.ln;
-            const int fl = ln.flags, m = r.mol;
-            if (!(fl & FL_VALID) || m < 0 || m >= n_mol) continue;
-            Pair pr;
-            if (!pair_of(whi[w], wlo[w], ln, pr)) continue;
-            float k1, k2, k3;
-            const bool lor = shapes<VOIGT>(pr, ln, k1, k2, k3);
-            const float sls = branch_trees(pr, ln, k1, k2, k3);
-            acc[m] += sls * ln.stild;
-            stats[0] += 1;                           // kept pairs
-            stats[1] += !lor;                        // SD-Voigt lanes
-            stats[2] += pr.mirror;                   // with the mirror term
-            stats[3] += pr.o2 && !pr.cpl && !pr.within;  // 0 * stild
+        for (int c0 = 0; c0 < n_lines; c0 += chunk) {
+            float part = 0.0f;
+            int cur = -1;
+            for (int q = c0; q < n_lines && q < c0 + chunk; ++q) {
+                const Line& ln = lines[q].ln;
+                const int fl = ln.flags, m = lines[q].mol;
+                if (!(fl & FL_VALID) || m < 0 || m >= n_mol) continue;
+                const bool kept = fwd_key(fl, m, n_mol,
+                                          ln.nu_hi + (ln.nu_lo + ln.shift),
+                                          ln.shift, lo, hi) >= 0;
+                if (kept && m != cur) {
+                    if (cur >= 0) acc[cur] += part;
+                    part = 0.0f;
+                    cur = m;
+                }
+                Pair pr;
+                if (!pair_of(whi[w], wlo[w], ln, pr)) continue;
+                float k1, k2, k3;
+                const bool lor = shapes<VOIGT>(pr, ln, k1, k2, k3);
+                const float sls = branch_trees(pr, ln, k1, k2, k3);
+                if (kept) part += sls * ln.stild;
+                stats[0] += 1;                       // kept pairs
+                stats[1] += !lor;                    // SD-Voigt lanes
+                stats[2] += pr.mirror;               // with the mirror term
+                stats[3] += pr.o2 && !pr.cpl && !pr.within;  // 0 * stild
+                stats[7] += !kept && sls * ln.stild != 0.0f;
+            }
+            if (cur >= 0) acc[cur] += part;
         }
     }
 }
@@ -94,9 +120,8 @@ static void hoisted(const std::vector<float>& whi,
         lo = fminf(lo, whi[w]);
         hi = fmaxf(hi, whi[w]);
     }
-    std::vector<float> t_whi(S * NW), t_wlo(S * NW), acc(S * NW, 0.0f);
+    std::vector<float> t_whi(S * NW), t_wlo(S * NW);
     std::vector<float*> rows(S * NW);
-    std::vector<int> cur_m(S, -1);
     for (int t = 0; t < S; ++t)
         for (int r = 0; r < NW; ++r) {
             const int w = t + r * S, wc = w < n_w ? w : n_w - 1;
@@ -131,20 +156,18 @@ static void hoisted(const std::vector<float>& whi,
         for (int t = 0; t < S; ++t)
             fwd_chunk<VOIGT, NW>(s.data(), sd.data(), n,
                                  &t_whi[t * NW], &t_wlo[t * NW],
-                                 &acc[t * NW], cur_m[t], &rows[t * NW]);
+                                 &rows[t * NW]);
     }
-    for (int t = 0; t < S; ++t)
-        fwd_flush<NW>(&acc[t * NW], cur_m[t], &rows[t * NW]);
 }
 
 template <bool VOIGT, int NW>
 static void run(int chunk, int S, int n_mol, const std::vector<float>& whi,
                 const std::vector<float>& wlo, const std::vector<Raw>& lines) {
     std::vector<float> ref(whi.size() * n_mol), got(whi.size() * n_mol);
-    long stats[7] = {0};
-    reference<VOIGT>(whi, wlo, lines, n_mol, ref, stats);
+    long stats[8] = {0};
+    reference<VOIGT>(whi, wlo, lines, n_mol, chunk, ref, stats);
     hoisted<VOIGT, NW>(whi, wlo, lines, n_mol, chunk, S, got, stats);
-    for (int c = 0; c < 7; ++c) printf("%ld ", stats[c]);
+    for (int c = 0; c < 8; ++c) printf("%ld ", stats[c]);
     printf("\n");
     for (size_t e = 0; e < ref.size(); ++e)
         printf("%u %u\n", bits(ref[e]), bits(got[e]));
@@ -259,7 +282,8 @@ def test_walk_is_bitwise_the_unhoisted_loop(exe, mode, nw):
     out = subprocess.run([str(exe)], input=head + body, text=True,
                          capture_output=True, check=True,
                          timeout=300).stdout.splitlines()
-    kept, sd, mirror, o2_out, far, none, switches = map(int, out[0].split())
+    kept, sd, mirror, o2_out, far, none, switches, dropped_nonzero = map(
+        int, out[0].split())
     ref_got = np.array([ln.split() for ln in out[1:]], dtype=np.uint32)
     assert ref_got.shape == (n_w * n_mol, 2)
     ref, got = ref_got[:, 0], ref_got[:, 1]
@@ -269,6 +293,8 @@ def test_walk_is_bitwise_the_unhoisted_loop(exe, mode, nw):
     # what the case covers
     assert kept > 5000 and mirror > 500 and o2_out > 200
     assert far > 50 and none == 3 and switches > 20
+    # a line fwd_key drops adds nothing in the unhoisted loop either
+    assert dropped_nonzero == 0
     if voigt:
         assert sd > 30
     else:

@@ -4,8 +4,10 @@
   it, and its CLI (run as `__main__`) through the pipeline on an IATM=0
   and an IATM=1 rundir, without importing jax or any module of the JAX
   package `monortm_tpu` (the machine with the GPU has no JAX, and the
-  port keeps its own copies of the host modules it needs);
-- the pipeline's modules, the mesh modules (`parallel/`) among them,
+  port keeps its own copies of the host modules it needs), and neither
+  does the envelope entry point (`python -m monortm_tpu_torch.envelope`);
+- the pipeline's modules, the mesh modules (`parallel/`) and the
+  envelope's among them,
   hold no import of either, read from their source, and two gloo ranks
   that take a gradient on a mesh never import either;
 - the CLI on its default device fails where there is no GPU;
@@ -122,7 +124,8 @@ print(sorted(k for k in sys.modules
 """
 
 PIPELINE_MODULES = (
-    "pipeline.py", "cli.py", "types.py", "lines.py", "testing.py",
+    "pipeline.py", "cli.py", "envelope.py", "types.py", "lines.py",
+    "testing.py",
     "io/tape3.py", "io/tape5.py", "io/profin.py", "io/emis.py",
     "io/cldod.py", "io/tape7.py", "io/fscdxs.py", "io/output.py",
     "atmos/layering.py", "atmos/tape5_atm.py", "utils/trace.py",
@@ -138,6 +141,30 @@ def test_cli_as_main_never_imports_jax(tmp_path):
                env=_env(OMP_NUM_THREADS="1"))
     assert res.returncode == 0, res.stderr
     assert "PROCESSING PROFILE NUMBER" in res.stdout
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+
+
+# the envelope entry point as `python -m` at a tiny size on the CPU, then
+# the modules the process loaded
+ENVELOPE_MAIN = """
+import runpy, sys
+sys.argv = ["envelope", "--device", "cpu", "--nlay", "3", "--lines", "30",
+            "--nwn", "200", "--outdir", sys.argv[1]]
+try:
+    runpy.run_module("monortm_tpu_torch.envelope", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+print(sorted(k for k in sys.modules
+             if k.startswith("jax") or k.split(".")[0] == "monortm_tpu"))
+"""
+
+
+def test_envelope_as_main_never_imports_jax(tmp_path):
+    res = _run(["-c", ENVELOPE_MAIN, str(tmp_path)],
+               env=_env(OMP_NUM_THREADS="1"))
+    assert res.returncode == 0, res.stderr
+    assert "finite=True" in res.stdout
+    assert (tmp_path / "MONORTM.OUT").stat().st_size > 0
     assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
 
 
