@@ -11,9 +11,10 @@ on the GPU):
   2 each forward instantiation (VOIGT true / false) against its plain
     PyTorch version;
   3 `MonoRTM.forward` once, checking that it went through both forward
-    kernels and agrees with the CPU path on one profile; a model with
-    `LineConfig(chi_fn=...)` on the card is refused with an error naming
-    chi_fn (a Python callable cannot enter the kernels);
+    kernels and agrees with the CPU path on every 8th wavenumber of one
+    profile; a model with `LineConfig(chi_fn=...)` on the card is refused
+    with an error naming chi_fn (a Python callable cannot enter the
+    kernels);
   4 forward timings, each forward kernel beside its plain version;
   5 each adjoint instantiation against its plain version (seeded
     cotangents on the small and bench plans at 1013 / 20 / 0.02 hPa, with
@@ -46,11 +47,12 @@ on the GPU):
     bitwise the same in a chunk of 64 and of 8 (`batch_stages`; the two
     forward instantiations on the all-Lorentz layers are compared and
     printed, not required equal), profile 1's Tb and total OD against the
-    port's CPU pipeline on a 1-profile copy, and a small IATM=1 rundir (US
-    standard, 0-30 km) on the card to finite Tb;
+    port's CPU pipeline on a 1-profile copy listing every 8th wavenumber,
+    and a small IATM=1 rundir (US standard, 0-30 km) on the card to
+    finite Tb;
   9 float64 at full width through the dense engine: phase 8's rundir cut
-    to its first 8 profiles, `run(dtype=torch.float64)` twice at a cap of
-    8 and once at 2, MONORTM.OUT byte-identical across the three, no
+    to its first 4 profiles, `run(dtype=torch.float64)` twice at a cap
+    of 4 and once at 2, MONORTM.OUT byte-identical across the three, no
     line-sum kernel launched, wall seconds, profiles/s, peak memory and
     the dense block's shape; profile 1 against the port's CPU float64
     pipeline on every 32nd wavenumber (Tb within 1e-9 K, total OD at rtol
@@ -121,11 +123,33 @@ on the GPU):
     as an explicit list: the float32 kernels' Tb within 0.05 K of the
     float64 dense engine's, and the envelope run's Tb there within the
     forward's 2e-3 K of the list's.
+  15 the retrieval adjoint at the envelope, on phase 14's rebuilt model
+    and state (`monortm_tpu_torch.envelope.envelope_grad`, what
+    `python -m monortm_tpu_torch.envelope --grad` runs): value and
+    gradient of phase 6's loss through `MonoRTM.tb` by every float field,
+    once: all four kernels launched (the deferred pass by the library's
+    count of started kernels), every gradient finite and not all zero,
+    peak memory against `_profile_bytes`' forward estimate, wall seconds,
+    each kernel's time by CUDA events; central differences at one layer
+    of each engine (phase 6's eps and tolerance); each adjoint
+    instantiation on sampled pairs, the first and last row of its launch
+    (the engine's highest- and lowest-pressure layers) by the line tile
+    nearest the band's middle and the one of the 60 GHz O2 band, each
+    swept over its whole reverse-map row (a sub-plan of those tiles), on
+    the real cotangent of the full run: bitwise the full launch's, within
+    the adjoint's tolerance of the plain float32 adjoint, both printed
+    against the plain adjoint in float64; each adjoint kernel's device
+    time in one call at the envelope by torch.profiler (sweep and deferred
+    pass apart), the deferral words against the (layer, line) pairs with
+    SD-Voigt lanes, the slots the deferred pass visits, and the bound of
+    each of the four kernels at the envelope (lanes counted by interval,
+    `lane_counts_by_interval`, which phase 4 holds equal to `lane_counts`
+    at the bench cell).
 
 Run from the repository root:  python3 chip_smoke.py
 (`python3 chip_smoke.py --batch-stages` builds the kernels and runs only
 phase 8's stage-by-stage chunk comparison; `--envelope` builds them and
-runs only phase 14, printing its readings as JSON; `--mesh-rank DIR
+runs only phases 14 and 15, printing their readings as JSON; `--mesh-rank DIR
 MESH` is one rank of phase 13's gradient check, started by phase 13.)
 Exits non-zero (and prints no result line) without a CUDA device or when
 any phase fails; a phase prints all of its comparisons before it fails.
@@ -136,7 +160,9 @@ over those calls: the Voigt adjoint's two), its worst error against its plain ve
 worst err / max|ref| over the kernel's outputs), its time, its plain
 version's time and its bound; phase 14 adds each kernel's CUDA calls on
 65600 rows, and each forward kernel's launches and time in the envelope
-run and its readings on the sampled blocks.  The last line of stdout is
+run and its readings on the sampled blocks; phase 15 each kernel's bound
+at the envelope, its launches and time in the envelope's value_and_grad,
+and each adjoint's readings on the sampled pairs.  The last line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -244,10 +270,14 @@ PEAK_BYTES = 3.35e12
 # 3.1-3.3 layer the US standard atmosphere from 0 to 30 km, looking up
 # from the ground (tests/test_atmos.py CASE1_REST)
 PIPE_NPROF, PIPE_CAPS, PIPE_REPS = 64, (64, 8), 3
+# phases 3 and 8: the CPU references (plain line sums on the host) on
+# every CPU_WN_STEP-th wavenumber of one profile (all 1024 took ~70 s
+# each on the card's host)
+CPU_WN_STEP = 8
 # phase 9: float64 on phase 8's rundir cut to its first profiles; profile
 # 1 against the CPU on every F64_CPU_WN_STEP-th wavenumber, at the e2e
 # oracle's float64 budgets (tests/test_e2e_oracle.py:27-28)
-F64_NPROF, F64_CAPS, F64_CPU_WN_STEP = 8, (8, 2), 32
+F64_NPROF, F64_CAPS, F64_CPU_WN_STEP = 4, (4, 2), 32
 F64_TB_ATOL, F64_OD_RTOL, F64_OD_ATOL = 1e-9, 1e-10, 1e-14
 # phase 11: cross-sections at full width, cut to XS_NPROF profiles;
 # profile 1 against the CPU on every XS_CPU_WN_STEP-th wavenumber (the
@@ -302,6 +332,9 @@ IATM1_TAPE5 = "\n".join([
 # TB64_LIMIT (the JAX package's hardware budget, tests/test_tpu_golden.py),
 # a reading above TB_ATOL is reported
 ROWS_BIG, NLAY_ENV = 65600, 200
+# phase 15: the sampled pairs' O2 line tile holds the O2 line nearest this
+# wavenumber, cm^-1 (the 60 GHz band)
+ENV_O2_BAND = 2.0
 ENV_SAMPLE_ROWS, ENV_O2_WN, ENV_LIST_STEP = 2, (2.0, 8.0), 2500
 TB64_LIMIT = 0.05
 
@@ -401,6 +434,120 @@ def lane_counts(pre, mol, wn_hi, wn_lo, cand_map, cand_valid, nt, wt,
     check(int(by_class.sum()) == counts[0] + counts[1],
           "lane counts by class do not add up")
     return counts, sd_lanes, by_class.view(-1, 2).tolist()
+
+
+def first_true(pred, n: int, shape, dev):
+    """For a predicate pred(j) on index tensors j of `shape` that is
+    false then true along j in [0, n): the first j where it holds, n where
+    it never does (a binary search, each step one call of pred)."""
+    lo = torch.zeros(shape, dtype=torch.int64, device=dev)
+    hi = torch.full(shape, n, dtype=torch.int64, device=dev)
+    for _ in range(max(n, 1).bit_length()):
+        mid = torch.minimum((lo + hi) // 2, torch.tensor(n - 1, device=dev))
+        p = pred(mid) & (lo < hi)
+        hi = torch.where(p, mid, hi)
+        lo = torch.where(p | (lo >= hi), lo, mid + 1)
+    return hi
+
+
+def lane_counts_by_interval(pre, mol, wn_hi, wn_lo, cand_map, cand_valid,
+                            nt, wt, n_mol, voigt, rows_per_chunk=8):
+    """lane_counts' three results, counted without evaluating the pairs:
+    along the grid, each mask of a (layer, line) is an interval of
+    wavenumber indices (d1 and dsum are non-decreasing in the index, in
+    float32 too), found by binary search on the kernels' own float32
+    expressions; a line's lanes are the indices of the interval that lie
+    in wavenumber tiles listing its tile, counted from each tile's
+    cumulative count of listing tiles.  The wavenumber tiles must be
+    ordered (they are, the grid is sorted).  Rows go in chunks of
+    `rows_per_chunk`.  Equal to lane_counts (phase 4 checks it at the
+    bench cell, tests/test_torch_envelope.py on the CPU)."""
+    dev = pre["stild"].device
+    L, n = pre["stild"].shape
+    n_wt, wp = cand_map.shape[0], wn_hi.shape[0]
+    k_tiles = n // nt
+    listed = torch.zeros((k_tiles, n_wt), dtype=torch.int64, device=dev)
+    cv = cand_valid > 0
+    i_of = torch.arange(n_wt, device=dev)[:, None].expand_as(cand_map)
+    listed[cand_map[cv].long(), i_of[cv]] = 1
+    ctile = torch.nn.functional.pad(listed.cumsum(1), (1, 0))
+    tile = torch.arange(n, device=dev) // nt
+
+    def cum(j):
+        """Listed wavenumbers of each line's tile before index j."""
+        t = j // wt
+        part = (j - t * wt) * listed[tile, torch.clamp(t, max=n_wt - 1)]
+        return wt * ctile[tile, t] + part
+
+    def count(a, b):
+        return cum(b) - cum(torch.minimum(a, b))
+
+    fl = {k: pre["flags"][k] > 0.5 for k in pre["flags"]}
+    w = lambda c, a, b: torch.where(c, a, b)
+    cls = w(fl["o2"], w(fl["cpl"], w(fl["xf1"], 0, 1), 2),
+            w(fl["co2"], w(fl["cpl"] & fl["xf15"], 3, 4),
+              w(fl["cpl"], 5, 6)))
+    ok = fl["valid"] & (mol >= 1) & (mol <= n_mol)
+    o2, o2cpl = fl["o2"], fl["o2"] & fl["cpl"]
+    c01, c99 = float(np.float32(0.01)), float(np.float32(0.99))
+    nh, nlo = pre["nu_hi"], pre["nu_lo"]
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    by_class = torch.zeros((len(BWD_LORENTZ_OPS), 2), dtype=torch.int64,
+                           device=dev)
+    sd_lanes = torch.zeros((L, n), dtype=torch.int64, device=dev)
+    for r0 in range(0, L, rows_per_chunk):
+        rs = slice(r0, min(r0 + rows_per_chunk, L))
+        sh = pre["shift"][rs]
+        shape = sh.shape
+        d1 = lambda j: (wn_hi[j] - nh) + (wn_lo[j] - nlo) - sh
+        dsum = lambda j: wn_hi[j] + (nh + (nlo + sh))
+        search = lambda pred: first_true(pred, wp, shape, dev)
+        zero = torch.zeros(shape, dtype=torch.int64, device=dev)
+        end = torch.full(shape, wp, dtype=torch.int64, device=dev)
+        win = (search(lambda j: d1(j) >= -25.0),
+               search(lambda j: d1(j) > 25.0))
+        k2_end = torch.where(o2cpl, end,
+                             search(lambda j: (dsum(j) - 25.0) > 0.0))
+        keep = (torch.where(o2, zero, win[0]), torch.where(o2, end, win[1]))
+        both = lambda a, b: (torch.maximum(a[0], b[0]),
+                             torch.minimum(a[1], b[1]))
+        if voigt:
+            ad100 = 100.0 * pre["ad"][rs]
+            zlor = pre["hw"][rs] * c01 > pre["ad"][rs] * c99
+            sd = both((search(lambda j: d1(j) >= -ad100),
+                       search(lambda j: d1(j) > ad100)), keep)
+            sd = (sd[0], torch.where(zlor, sd[0], sd[1]))
+        else:
+            sd = (zero, zero)
+        cap = lambda iv: (iv[0], torch.minimum(iv[1], k2_end))
+        okr = ok.expand(shape)
+        # kept lanes, SD-Voigt lanes, the window's and the SD-Voigt lanes
+        # in it, each without and with k2
+        ivs = []
+        for iv in (keep, sd, win, both(sd, win)):
+            ivs += [iv, cap(iv)]
+        n_keep, n_keep2, n_sd, n_sd2, n_win, n_win2, n_sdw, n_sdw2 = (
+            torch.where(okr, count(*iv), 0) for iv in ivs)
+        lor, lor2 = n_keep - n_keep2 - (n_sd - n_sd2), n_keep2 - n_sd2
+        counts += torch.stack([lor.sum(), lor2.sum(), (n_sd - n_sd2).sum(),
+                               n_sd2.sum()])
+        sd_lanes[rs] = n_sd
+        # uncoupled O2 outside the window: the last row of the tables
+        out = (cls == 2).expand(shape)
+        out2 = torch.where(out, (n_keep2 - n_win2) - (n_sd2 - n_sdw2), 0)
+        out1 = torch.where(out, (n_keep - n_win) - (n_sd - n_sdw), 0) - out2
+        c = cls.expand(shape)
+        for k2, v in ((0, lor - out1), (1, lor2 - out2)):
+            by_class[:, k2] += torch.bincount(c.reshape(-1),
+                                              v.reshape(-1),
+                                              minlength=len(by_class)
+                                              ).to(torch.int64)
+        by_class[-1, 0] += out1.sum()
+        by_class[-1, 1] += out2.sum()
+    counts = counts.tolist()
+    check(int(by_class.sum()) == counts[0] + counts[1],
+          "lane counts by class do not add up")
+    return counts, sd_lanes, by_class.tolist()
 
 
 def operands(model, state, engine, layers):
@@ -615,7 +762,7 @@ def phase8_pipeline(tmp: Path, kernels, reset_counts) -> dict:
     raw = RawLines(**{f: getattr(raw, f)[order]
                       for f in RawLines.__dataclass_fields__})
     write_rundir(tmp / "rundir", raw, PIPE_NPROF)
-    write_rundir(tmp / "one", raw, 1)
+    write_rundir(tmp / "one", raw, 1, wn_step=CPU_WN_STEP)
     files = rundir_files(tmp / "rundir")
 
     res, wall, _ = drive(files, tmp / "warm")
@@ -687,8 +834,9 @@ def phase8_pipeline(tmp: Path, kernels, reset_counts) -> dict:
         log("  caps not compared byte for byte: the engine split differs")
 
     # profile 1 against the port's CPU pipeline (plain line sums) on a
-    # 1-profile copy of the rundir
+    # 1-profile copy of the rundir listing every CPU_WN_STEP-th wavenumber
     gpu = res.results[0]
+    sub = slice(None, None, CPU_WN_STEP)
     t0 = time.perf_counter()
     one = tmp / "one"
     files_one = dict(filein=one / "MONORTM.IN",
@@ -696,13 +844,14 @@ def phase8_pipeline(tmp: Path, kernels, reset_counts) -> dict:
     with contextlib.redirect_stdout(io.StringIO()):
         ref = pipeline.run(**files_one, outdir=one / "out",
                            device="cpu").results[0]
-    log(f"  CPU pipeline (1 profile) in {time.perf_counter() - t0:.1f} s")
-    tb_err = float(np.max(np.abs(gpu.tb - ref.tb)))
+    log(f"  CPU pipeline (1 profile, {len(ref.tb)} wavenumbers) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tb_err = float(np.max(np.abs(gpu.tb[sub] - ref.tb)))
     log(f"  profile 1 tb vs CPU pipeline: max_abs_err={tb_err:.3e} K")
     if tb_err > TB_ATOL:
         FAILED.append(f"profile 1 Tb differs from the CPU pipeline by "
                       f"{tb_err} K")
-    compare(torch.as_tensor(gpu.otot), torch.as_tensor(ref.otot),
+    compare(torch.as_tensor(gpu.otot[sub]), torch.as_tensor(ref.otot),
             "profile 1 total OD vs CPU pipeline")
 
     # IATM=1: the layering on the host, the rest on the card
@@ -727,9 +876,9 @@ def phase9_float64(tmp: Path, raw, kernels, reset_counts) -> None:
                                              DENSE_WN_TILE, build_dense_tiles)
     from monortm_tpu_torch.ops.lineshape import catalog_to_host
 
-    write_rundir(tmp / "rundir8", raw, F64_NPROF)
+    write_rundir(tmp / "rundir_f64", raw, F64_NPROF)
     write_rundir(tmp / "one_sub", raw, 1, wn_step=F64_CPU_WN_STEP)
-    files = rundir_files(tmp / "rundir8")
+    files = rundir_files(tmp / "rundir_f64")
     cat = load_catalog(files["hfile"], 0.3, 55.0, tile=pipeline.LINE_TILE)
     tiles = build_dense_tiles(cat, catalog_to_host(cat, torch.float64),
                               np.linspace(0.3, 55.0, NWN), DENSE_WN_TILE,
@@ -739,7 +888,8 @@ def phase9_float64(tmp: Path, raw, kernels, reset_counts) -> None:
         f"{tiles['o2']['mol'].shape[1]} O2 lines; "
         f"{len(tiles['cand'])} wavenumber tiles")
     outs = {}
-    for name, cap in (("cap 8, run 1", F64_NPROF), ("cap 8, run 2", F64_NPROF),
+    for name, cap in ((f"cap {F64_CAPS[0]}, run 1", F64_CAPS[0]),
+                      (f"cap {F64_CAPS[0]}, run 2", F64_CAPS[0]),
                       (f"cap {F64_CAPS[1]}", F64_CAPS[1])):
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -1263,12 +1413,12 @@ def phase13_mesh(tmp: Path, grad_inputs: dict) -> dict:
 
     # float64 on phase 9's cut: the dense engine's tiles split over wn
     out = tmp / "mesh 1x2 f64"
-    wall, outs = spawn_cli(rundir_files(tmp / "rundir8"), out, 2, "1x2",
+    wall, outs = spawn_cli(rundir_files(tmp / "rundir_f64"), out, 2, "1x2",
                            "--precision", "float64")
     launches["1x2 float64"] = rank_lines("mesh 1x2 float64", outs)
     if (out / "MONORTM.OUT").exists():
-        same = (out / "MONORTM.OUT").read_bytes() == \
-            (tmp / "f64 cap 8, run 1" / "MONORTM.OUT").read_bytes()
+        phase9 = tmp / f"f64 cap {F64_CAPS[0]}, run 1" / "MONORTM.OUT"
+        same = (out / "MONORTM.OUT").read_bytes() == phase9.read_bytes()
         log(f"  mesh 1x2 float64 ({F64_NPROF} profiles): {wall:.3f} s; "
             f"MONORTM.OUT byte-identical to phase 9's: {same}")
         if not same:
@@ -1446,48 +1596,25 @@ def phase14_capacity(dev, kernels) -> None:
                       "kernel did not launch")
 
 
-def phase14_envelope(tmp: Path, kernels, reset_counts) -> dict:
+def phase14_envelope(tmp: Path, kernels, reset_counts):
     """Phase 14 (c)-(e) (see the module docstring): the envelope through
     `monortm_tpu_torch.envelope.run_envelope`, each forward kernel timed
     in it by CUDA events around its launches; the kernels against their
     plain versions on sampled blocks of its plan, with their times and
     bounds there; the 32-wavenumber list at float32 and float64.  Returns
-    each forward kernel's readings."""
+    each forward kernel's readings, and the envelope's rebuilt model, its
+    state and its files for phase 15."""
     from monortm_tpu_torch import envelope, pipeline
-    from monortm_tpu_torch.convert import state_from_numpy
-    from monortm_tpu_torch.io.profin import read_profiles
-    from monortm_tpu_torch.io.tape5 import Tape5Reader
-    from monortm_tpu_torch.lines import load_catalog
-    from monortm_tpu_torch.models.monortm import MonoRTM
     from monortm_tpu_torch.ops.linesum import _contrib_voigt, sweep_plain
-    from monortm_tpu_torch.ops.lineshape import LineConfig
     from monortm_tpu_torch.ops.linesum_lorentz import _contrib_lorentz
 
     d = tmp / "envelope"
-    events = {e: [] for e in kernels}
-
-    def timed(k, e):
-        def launch(*a):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = type(k).launch(k, *a)
-            end.record()
-            events[e].append((start, end))
-            return out
-        return launch
-
     reset_counts()
-    for e, k in kernels.items():
-        k.launch = timed(k, e)
-    try:
+    with envelope.kernel_events(kernels) as events:
         env = envelope.run_envelope(d, device="cuda", echo=log)
-    finally:
-        for k in kernels.values():
-            del k.launch
     launches = {e: k.launches for e, k in kernels.items()}
-    ms = {e: sum(a.elapsed_time(b) for a, b in v)
-          for e, v in events.items()}
+    ms = {e: v for (e, kind), v in envelope.event_ms(events).items()
+          if kind == "fwd"}
     res = env["result"]
     (n, split, lor), = res.engines
     log(f"  (c) envelope: engine split {split}, {len(lor)} of {NLAY_ENV} "
@@ -1499,23 +1626,18 @@ def phase14_envelope(tmp: Path, kernels, reset_counts) -> dict:
         FAILED.append(f"(c) a forward kernel did not launch: {launches}")
     # at <= MAX_GRID_ROWS rows a wrapper call is one CUDA call, so every
     # counted launch lies inside a timed pair of events
-    timed_calls = {e: len(v) for e, v in events.items()}
+    timed_calls = {e: len(v) for (e, kind), v in events.items()
+                   if kind == "fwd"}
     if timed_calls != launches:
         FAILED.append(f"(c) timed wrapper calls {timed_calls} are not the "
                       f"launches {launches}")
 
     # (d) the envelope's model, built from its files as pipeline.run
     # builds it
-    prof = read_profiles(d / "MONORTM_PROF.IN")[0]
-    cfg = Tape5Reader(d / "MONORTM.IN").read_block()
-    model = MonoRTM(
-        cfg.wn, cfg.dvset,
-        load_catalog(d / "TAPE3", float(cfg.wn[0]), float(cfg.wn[-1]),
-                     tile=pipeline.LINE_TILE),
-        nmol=prof.meta.nmol, line_cfg=LineConfig(ibrd=cfg.ibrd),
-        device="cuda", wn_tile=pipeline.WN_TILE,
-        line_tile=pipeline.LINE_TILE)
-    state = state_from_numpy(prof.state, "cuda", torch.float32)
+    files = dict(filein=d / "MONORTM.IN", fileprof=d / "MONORTM_PROF.IN",
+                 hfile=d / "TAPE3")
+    model, state, cfg = envelope.build_model(files, "cuda")
+    nmol = model.od_model.nmol
     wn = res.wn
     same = (np.array_equal(cfg.wn, wn) and sorted(
         model.engine_split(state)[1]) == sorted(lor))
@@ -1523,7 +1645,7 @@ def phase14_envelope(tmp: Path, kernels, reset_counts) -> dict:
         FAILED.append("(d) the rebuilt model's grid or engine split is not "
                       "the envelope run's")
     n_lines = len(model.od_model.plan["cat"]["mol"])
-    est = pipeline._profile_bytes(len(wn), NLAY_ENV, prof.meta.nmol, n_lines)
+    est = pipeline._profile_bytes(len(wn), NLAY_ENV, nmol, n_lines)
     log(f"  (c) _max_batch's estimate per profile {est / 2**30:.3f} GiB "
         f"against the measured peak {env['peak_bytes'] / 2**30:.3f} GiB: "
         f"{est / env['peak_bytes']:.2f}x")
@@ -1576,7 +1698,7 @@ def phase14_envelope(tmp: Path, kernels, reset_counts) -> dict:
             f"{b_ms:.4f} ms ({b_by}; lanes lor/lor+k2/sd/sd+k2 {counts}); "
             f"lane_counts took {t_count:.2f} s here, ~"
             f"{t_count * n_blocks / int(cv[ix].sum()):.0f} s for the whole "
-            f"plan (its bound at the envelope is not counted)")
+            f"plan (phase 15 counts the envelope's bound by interval)")
         out[eng] = {"envelope_launches": launches[eng],
                     "envelope_ms": ms[eng],
                     "envelope_sample": {
@@ -1586,19 +1708,18 @@ def phase14_envelope(tmp: Path, kernels, reset_counts) -> dict:
                         "max_rel_err": rel,
                         "kernel_vs_float64": e64["kernel"],
                         "plain_vs_float64": e64["plain float32"]}}
-    del model
 
     # (e) every ENV_LIST_STEP-th wavenumber, float32 against float64
     ld = tmp / "envelope_list"
     ld.mkdir()
     (ld / "MONORTM.IN").write_text(envelope.tape5_text(
         wn_list=wn[::ENV_LIST_STEP]))
-    files = dict(filein=ld / "MONORTM.IN", fileprof=d / "MONORTM_PROF.IN",
-                 hfile=d / "TAPE3")
+    list_files = dict(filein=ld / "MONORTM.IN",
+                      fileprof=d / "MONORTM_PROF.IN", hfile=d / "TAPE3")
     tb = {}
     for name, dtype in (("float32", torch.float32),
                         ("float64", torch.float64)):
-        r, wall, _ = drive(files, ld / name, dtype=dtype)
+        r, wall, _ = drive(list_files, ld / name, dtype=dtype)
         tb[name] = r.tb[0]
         log(f"  (e) {len(r.wn)} listed wn at {name}: {wall:.3f} s, engine "
             f"split {[(n, e, len(lo)) for n, e, lo in r.engines]}")
@@ -1619,21 +1740,281 @@ def phase14_envelope(tmp: Path, kernels, reset_counts) -> dict:
                       f"list run's, over {TB_ATOL}")
     for e in out:
         out[e]["tb_vs_float64_K"] = err64
-    return out
+    return out, (model, state, files)
 
 
-def phase14(tmp: Path, dev, kernels, reset_counts) -> dict:
+def phase14(tmp: Path, dev, kernels, reset_counts):
     """Phase 14 (see the module docstring): (a) row blocks, (b) the
     capacity check, (c)-(e) the envelope; returns the readings for the
-    kernels line, by kernel name."""
+    kernels line, by kernel name, and the envelope's rebuilt model, state
+    and files."""
     out = {}
     calls = phase14_rows(dev, kernels)
     phase14_capacity(dev, kernels)
-    env = phase14_envelope(tmp, kernels, reset_counts)
+    env, built = phase14_envelope(tmp, kernels, reset_counts)
     for eng, k in kernels.items():
         out[f"linesum_{k.name}"] = {**env[eng],
                                     "row_block_calls": calls[eng][0]}
         out[f"linesum_bwd_{k.name}"] = {"row_block_calls": calls[eng][1]}
+    return out, built
+
+
+def sample_tiles(plan, wn) -> list:
+    """Phase 15's line tiles of a plan: the one holding the valid line
+    nearest the band's middle among the lines of no O2, and the one
+    holding the valid O2 line nearest ENV_O2_BAND."""
+    cat, nt = plan["cat"], plan["nt"]
+    nu = (cat["nu0_hi"].double() + cat["nu0_lo"].double()).cpu().numpy()
+    mol = cat["mol"].cpu().numpy()
+    valid = cat["valid"].cpu().numpy().astype(bool)
+    tiles = []
+    for sel, at in ((valid & (mol != 7), 0.5 * (wn[0] + wn[-1])),
+                    (valid & (mol == 7), ENV_O2_BAND)):
+        idx = np.nonzero(sel)[0]
+        tiles.append(int(idx[np.argmin(np.abs(nu[idx] - at))]) // nt)
+    return sorted(set(tiles))
+
+
+def sub_cand_map(rev_map, rev_valid, n_wt: int):
+    """The candidate map of a sub-plan whose line tiles are the rows of
+    `rev_map` (numbered 0, 1, ...): each wavenumber tile lists those of
+    them whose reverse row holds it (int32 device tensors)."""
+    rm, rv = rev_map.cpu().numpy(), rev_valid.cpu().numpy()
+    cm = np.zeros((n_wt, rm.shape[0]), np.int32)
+    cv = np.zeros_like(cm)
+    for j in range(rm.shape[0]):
+        for i in rm[j][rv[j] > 0]:
+            slot = int(cv[i].sum())
+            cm[i, slot], cv[i, slot] = j, 1
+    return (torch.as_tensor(cm, device=rev_map.device),
+            torch.as_tensor(cv, device=rev_map.device))
+
+
+def adjoint_kernel_ms(k, args, g) -> dict:
+    """Device ms of each kernel one adjoint call starts, by
+    torch.profiler, and of the call by CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pre, mol, wh, wl, cm, cv, nt, wt, n_mol, rev = args
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, ms = timed_call(lambda: k.launch_bwd(pre, mol, wh, wl, *rev, nt,
+                                                wt, n_mol, g))
+    out = {"call": ms}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name in ("linesum_bwd_sweep", "linesum_bwd_deferred"):
+            if name in e.name:
+                out[name] = (out.get(name, 0.0)
+                             + e.time_range.elapsed_us() / 1e3)
+    return out
+
+
+def deferral_slots(words, rev_valid, nt: int) -> tuple:
+    """(slots the deferred pass visits, slots a 32-bit mask with one bit
+    per slot below 31 and one shared by the rest would have it visit)
+    over the deferral words [L, N]: the first from the words' spans; the
+    second their slots below 31 and every valid slot from 31 to the row's
+    end where a span reaches past 30."""
+    from monortm_tpu_torch.ops.linesum_kernel import deferral_span
+    first, last = deferral_span(words)
+    on = words != 0
+    row_len = rev_valid.sum(1).to(torch.int64)[
+        torch.arange(words.shape[1], device=words.device) // nt]
+    span = torch.where(on, last - first + 1, 0)
+    low = torch.where(on, torch.clamp(torch.clamp(last, max=30) - first + 1,
+                                      min=0), 0)
+    high = torch.where(on & (last > 30), row_len - 31, 0)
+    return int(span.sum()), int((low + high).sum())
+
+
+def phase15(kernels, reset_counts, built) -> dict:
+    """Phase 15 (see the module docstring): the retrieval adjoint at the
+    envelope on phase 14's rebuilt model and state.  Returns the readings
+    for the kernels line, by kernel name."""
+    from monortm_tpu_torch import envelope, pipeline
+    from monortm_tpu_torch.ops.linesum import line_sum_bwd_plain
+    from monortm_tpu_torch.ops.linesum_kernel import PER_L
+    from monortm_tpu_torch.ops.linesum_lorentz import lorentz_sum_bwd_plain
+    from monortm_tpu_torch.types import LayerState
+
+    model, state, _ = built
+    od = model.od_model
+    wn = model.wn
+    engine, lor = model.engine_split(state)
+    layers = {"full": [i for i in range(NLAY_ENV) if i not in set(lor)],
+              "lorentz": list(lor)}
+    tiles = {e: sample_tiles(od.dev_plans[e], wn) for e in kernels}
+    captured = {}
+
+    def on_bwd(e, args, out):
+        """The sampled pairs' operands, cotangent g and results of the
+        full launch: its first and last row by the sample tiles' lines."""
+        pre, mol, wh, wl, rm, rv, nt, wt, n_mol, g = args
+        dev = g.device
+        rows = torch.tensor([0, g.shape[0] - 1], device=dev)
+        cols = torch.cat([torch.arange(t * nt, (t + 1) * nt)
+                          for t in tiles[e]]).to(dev)
+        ti = torch.tensor(tiles[e], device=dev)
+        sub = {k: pre[k][rows][:, cols].contiguous() for k in PER_LN}
+        sub.update({k: pre[k][cols].contiguous() for k in PER_L})
+        sub["flags"] = {k: v[cols].contiguous()
+                        for k, v in pre["flags"].items()}
+        captured[e] = dict(
+            args=(sub, mol[cols].contiguous(), wh, wl),
+            rev=(rm[ti].contiguous(), rv[ti].contiguous()),
+            sizes=(nt, wt, n_mol), g=g[rows].contiguous(),
+            out=[None if o is None else o[rows][:, cols].clone()
+                 for o in out])
+
+    reset_counts()
+    r = envelope.envelope_grad(model, state, echo=lambda s: log("  " + s),
+                               on_bwd=on_bwd)
+    launches, started = r["launches"], r["kernels_started"]
+    if not all(a > 0 and b > 0 for a, b in launches.values()):
+        FAILED.append(f"a kernel of the path did not launch: {launches}")
+    if started["full"] != 2 * launches["full"][1] or \
+            started["lorentz"] != launches["lorentz"][1]:
+        FAILED.append(f"the adjoint library started {started} kernels for "
+                      f"{launches} launches: the deferred pass did not run")
+    if not r["grads_ok"]:
+        FAILED.append("a gradient is not finite or is all zero")
+    n_lines = len(od.plan["cat"]["mol"])
+    est = pipeline._profile_bytes(len(wn), NLAY_ENV, od.nmol, n_lines)
+    log(f"  peak of value_and_grad {r['peak_bytes'] / 2**30:.3f} GiB; "
+        f"_profile_bytes' forward estimate {est / 2**30:.3f} GiB per "
+        f"profile, {est / r['peak_bytes']:.2f}x of it")
+
+    # central differences at the layer of each engine with the largest
+    # gradient by t, phase 6's eps and tolerance
+    gt = r["grads"]["t"]
+
+    def loss_t(t):
+        st = LayerState(p=state.p, t=t, tz=state.tz, wkl=state.wkl,
+                        wbrodl=state.wbrodl, clw=state.clw)
+        with torch.no_grad():
+            tb = envelope.tb_of(model, st, engine, lor)
+        return float(torch.mean((tb.double() - r["tb_obs"]) ** 2))
+
+    eps = 4.0
+    for e, kind in (("full", "SD-Voigt engine"),
+                    ("lorentz", "all-Lorentz engine")):
+        il = max(layers[e], key=lambda i: abs(float(gt[i])))
+        tp, tm = state.t.clone(), state.t.clone()
+        tp[il] += eps
+        tm[il] -= eps
+        fd = (loss_t(tp) - loss_t(tm)) / (2 * eps)
+        an = float(gt[il])
+        log(f"  central difference, {kind} layer {il} "
+            f"({float(state.p[il]):.4g} hPa): autograd {an:.6e}, fd "
+            f"{fd:.6e} (eps={eps} K)")
+        if not abs(an - fd) <= 5e-2 * abs(fd) + 2e-8:
+            FAILED.append(f"gradient of layer {il} ({kind}) differs from "
+                          f"central differences: {an} vs {fd}")
+
+    out = {}
+    d64 = lambda v: v.double() if torch.is_tensor(v) else v
+    for e, k in kernels.items():
+        # (the sampled pairs) the kernel on the sub-plan of the sample
+        # tiles, bitwise the full launch's; the plain float32 adjoint; both
+        # against the plain adjoint in float64
+        c = captured[e]
+        nt, wt, n_mol = c["sizes"]
+        sub, mol, wh, wl = c["args"]
+        cm, cv = sub_cand_map(*c["rev"], od.dev_plans[e]["cand_map"].shape[0])
+        launch = lambda: k.launch_bwd(sub, mol, wh, wl, *c["rev"], nt, wt,
+                                      n_mol, c["g"])
+        got = launch()
+        torch.cuda.synchronize()
+        same = all(a is None or torch.equal(a, b)
+                   for a, b in zip(got, c["out"]))
+        rows = [layers[e][0], layers[e][-1]]
+        what = (f"{e} adjoint, rows {rows} ({float(state.p[rows[0]]):.4g}, "
+                f"{float(state.p[rows[1]]):.4g} hPa) x line tiles "
+                f"{tiles[e]} (reverse rows of "
+                f"{c['rev'][1].sum(1).tolist()} slots)")
+        log(f"  {what}: bitwise the full launch's: {same}")
+        if not same:
+            FAILED.append(f"{what}: not bitwise the full launch's")
+        plain, plain_ms = timed_call(lambda: k.plain_bwd(
+            sub, mol, wh, wl, cm, cv, nt, wt, n_mol, c["g"]))
+        pre64 = {n: d64(v) for n, v in sub.items()}
+        bwd64 = line_sum_bwd_plain if k.voigt else lorentz_sum_bwd_plain
+        ref64 = bwd64(pre64, mol, d64(wh), d64(wl), cm, cv, nt, wt, n_mol,
+                      d64(c["g"]),
+                      **({"f32_fallback": True} if k.voigt else {}))
+        worst, e64 = (0.0, 0.0), {}
+        for i, name in enumerate(PER_LN):
+            if got[i] is None:
+                continue
+            worst = tuple(map(max, worst, compare(
+                got[i], plain[i], f"{e} sample d{name} vs plain float32",
+                BWD_ATOL)))
+            scale = float(ref64[i].abs().max().clamp_min(1e-300))
+            e64[name] = [float((v.double() - ref64[i]).abs().max()) / scale
+                         for v in (got[i], plain[i])]
+        log(f"  {e} sample against the plain adjoint in float64, err/max "
+            f"(kernel, plain float32): "
+            + ", ".join(f"d{n} {a:.3e} / {b:.3e}" for n, (a, b)
+                        in e64.items()))
+        sub_ms = cuda_ms(launch, 3)
+
+        # (the whole plans) each kernel's device time in one adjoint call
+        # by the profiler; the deferral words against the SD-Voigt lanes
+        # counted here; the bound of the envelope's launches
+        args = operands(model, state, e, layers[e])
+        L, wp = args[0]["stild"].shape[0], args[2].shape[0]
+        gen = torch.Generator(device=wh.device).manual_seed(15)
+        g = torch.randn((L, wp, n_mol), generator=gen, device=wh.device)
+        kms = adjoint_kernel_ms(k, args, g)
+        t0 = time.perf_counter()
+        counts, sd_lanes, by_class = lane_counts_by_interval(
+            *args[:9], voigt=k.voigt)
+        t_count = time.perf_counter() - t0
+        bounds = {d: bound_by_class(d, k.voigt, counts, by_class,
+                                    line_bytes(args, d, k.voigt))
+                  for d in ("fwd", "bwd")}
+        slots = None
+        if k.voigt:
+            marked = k.deferred != 0
+            slots = deferral_slots(k.deferred, args[-1][1], nt)
+            log(f"  {e}: {int(marked.sum())} of {marked.numel()} (layer, "
+                f"line) deferred, {int((sd_lanes > 0).sum())} with kept "
+                f"SD-Voigt lanes ({int(sd_lanes.sum())}); the deferred pass "
+                f"visits {slots[0]} slots (a 32-bit slot mask: {slots[1]})")
+            if not torch.equal(marked, sd_lanes > 0):
+                FAILED.append(f"{e}: the deferral words are not the (layer, "
+                              f"line) pairs with SD-Voigt lanes")
+        log(f"  {e} at the envelope: lanes lor/lor+k2/sd/sd+k2 {counts} "
+            f"(counted in {t_count:.1f} s); forward bound "
+            f"{bounds['fwd'][0]:.3f} ms ({bounds['fwd'][1]}), adjoint bound "
+            f"{bounds['bwd'][0]:.3f} ms ({bounds['bwd'][1]}); adjoint kernels "
+            f"by the profiler {kms} ms; built {k.bwd_info(nt, wt, n_mol)}")
+        out[f"linesum_{k.name}"] = {
+            "envelope_bound_ms": bounds["fwd"][0],
+            "envelope_bound_by": bounds["fwd"][1],
+            "envelope_grad_launches": launches[e][0],
+            "envelope_grad_ms": r["kernel_ms"][(e, "fwd")]}
+        out[f"linesum_bwd_{k.name}"] = {
+            "envelope_launches": launches[e][1],
+            "envelope_ms": r["kernel_ms"][(e, "bwd")],
+            "envelope_bound_ms": bounds["bwd"][0],
+            "envelope_bound_by": bounds["bwd"][1],
+            "envelope_kernel_ms": kms, "envelope_lanes": counts,
+            "envelope_deferred_slots": slots,
+            "envelope_sample": {
+                "rows": rows, "line_tiles": tiles[e], "bitwise_full": same,
+                "ms": sub_ms, "plain_ms": plain_ms, "max_abs_err": worst[0],
+                "max_rel_err": worst[1], "vs_float64": e64}}
+    log(f"  value_and_grad {r['value_and_grad_s']:.3f} s, forward "
+        f"{r['forward_s']:.3f} s, peak {r['peak_bytes'] / 2**30:.3f} GiB, "
+        f"launches {launches}, kernel ms "
+        f"{ {f'{a} {b}': v for (a, b), v in r['kernel_ms'].items()} }")
+    out["value_and_grad"] = {"s": r["value_and_grad_s"],
+                             "forward_s": r["forward_s"],
+                             "peak_bytes": r["peak_bytes"],
+                             "profile_bytes_estimate": est}
     return out
 
 
@@ -1778,12 +2159,16 @@ def main(argv=None) -> int:
                     synthetic_catalog_mw(n_h2o=48, n_o2=16, tile=128),
                     nmol=22, device=dev)
     if argv == ["--envelope"]:
-        # phase 14 alone
+        # phases 14 and 15 alone
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             log("phase 14 the reference's capacity envelope")
-            env = phase14(Path(tmp), dev, kernels, reset_counts)
-        phase_done(14)
-        print(json.dumps(env))
+            env, built = phase14(Path(tmp), dev, kernels, reset_counts)
+            phase_done(14)
+            log("phase 15 the retrieval adjoint at the envelope")
+            grad = phase15(kernels, reset_counts, built)
+            del built
+        phase_done(15)
+        print(json.dumps({"phase14": env, "phase15": grad}))
         return 0
     cat = synthetic_catalog_mw(n_h2o=2048, n_o2=1024, tile=512)
     n_lines = int(np.sum(np.asarray(cat.valid)))
@@ -1855,17 +2240,20 @@ def main(argv=None) -> int:
     check(bool(((tb > 2.7) & (tb < 330.0)).all()), "tb outside 2.7-330 K")
     check(bool(torch.isfinite(out.od.od_total).all()), "non-finite od")
 
-    # the CPU path (plain line sums) on profile 0 is the reference
+    # the CPU path (plain line sums) on profile 0, every CPU_WN_STEP-th
+    # wavenumber, is the reference
     t0 = time.perf_counter()
-    cpu_model = MonoRTM(wn, float(wn[1] - wn[0]), cat, nmol=22,
-                        device="cpu")
+    sub = slice(None, None, CPU_WN_STEP)
+    cpu_model = MonoRTM(wn[sub], float(wn[sub][1] - wn[sub][0]), cat,
+                        nmol=22, device="cpu")
     st0 = LayerState(**{f: getattr(state, f)[0].cpu() for f in FIELDS})
-    ref = cpu_model.forward(st0, 288.0, emis.cpu(), refl.cpu(), irt=3,
-                            engine=engine, lor_layers=lor)
-    log(f"  CPU reference (profile 0) in {time.perf_counter() - t0:.1f}"
-        f" s")
-    compare(out.od.od_total[0].cpu(), ref.od.od_total, "od_total vs CPU")
-    tb_err = float((tb[0].cpu() - ref.rt.tb).abs().max())
+    ref = cpu_model.forward(st0, 288.0, emis[sub].cpu(), refl[sub].cpu(),
+                            irt=3, engine=engine, lor_layers=lor)
+    log(f"  CPU reference (profile 0, {len(wn[sub])} wavenumbers) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    compare(out.od.od_total[0][sub].cpu(), ref.od.od_total,
+            "od_total vs CPU")
+    tb_err = float((tb[0][sub].cpu() - ref.rt.tb).abs().max())
     log(f"  tb vs CPU: max_abs_err={tb_err:.3e} K")
     check(tb_err <= TB_ATOL, f"tb differs from the CPU path by {tb_err} K")
     # the kernels refuse the CO2 chi hook (LineConfig.chi_fn): a Python
@@ -1913,7 +2301,12 @@ def main(argv=None) -> int:
         k = kernels[eng]
         ms = cuda_ms(lambda: k(*args[:9]), 20)
         plain_ms = cuda_ms(lambda: k.plain(*args[:9]), 3)
-        counts, _, by_class = lane_counts(*args[:9], voigt=k.voigt)
+        counts, sd_lanes, by_class = lane_counts(*args[:9], voigt=k.voigt)
+        fast = lane_counts_by_interval(*args[:9], voigt=k.voigt)
+        if (fast[0], fast[2]) != (counts, by_class) \
+                or not torch.equal(fast[1], sd_lanes):
+            FAILED.append(f"{eng}: lane_counts_by_interval {fast[0]} "
+                          f"{fast[2]} is not lane_counts {counts} {by_class}")
         n_bytes = line_bytes(args, "fwd", k.voigt)
         f_ms, f_by = bound("fwd", k.voigt, counts, n_bytes)
         log(f"  {eng} kernel: bound {f_ms:.4f} ms ({f_by}) at the flat "
@@ -2188,10 +2581,21 @@ def main(argv=None) -> int:
         f"{ROWS_BIG - 65} rows, the 250k-line x 8192-wn capacity check, 1 "
         f"profile x {NLAY_ENV} layers x 80000 wn x 250k lines through "
         f"pipeline.run, the kernels on sampled blocks, Tb against float64")
-    for name, r in phase14(tmp, dev, kernels, reset_counts).items():
+    env, built = phase14(tmp, dev, kernels, reset_counts)
+    for name, r in env.items():
         results[name].update(r)
     tmp_dir.cleanup()
     phase_done(14)
+
+    # ---- phase 15: the retrieval adjoint at the envelope ----------------
+    log(f"phase 15 value_and_grad at the envelope: 1 profile x {NLAY_ENV} "
+        f"layers x 80000 wn x 250k lines, phase 14's model")
+    grad = phase15(kernels, reset_counts, built)
+    del built
+    grad.pop("value_and_grad")
+    for name, r in grad.items():
+        results[name].update(r)
+    phase_done(15)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2207,7 +2611,11 @@ def main(argv=None) -> int:
     extra = ("bound_ms_flat_count", "bound_ms_dual_count", "registers",
              "blocks_per_sm", "kernels_per_launch", "pipeline_launches",
              "mesh_launches", "envelope_launches", "envelope_ms",
-             "envelope_sample", "tb_vs_float64_K", "row_block_calls")
+             "envelope_sample", "tb_vs_float64_K", "row_block_calls",
+             "envelope_bound_ms", "envelope_bound_by",
+             "envelope_grad_launches", "envelope_grad_ms",
+             "envelope_kernel_ms", "envelope_lanes",
+             "envelope_deferred_slots")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi.stdout.strip().splitlines()[0])

@@ -46,16 +46,21 @@
 //     classes runs their loops in turn;
 //   - SD-Voigt lanes (VOIGT=true) are left out of the sweep, whose
 //     registers would otherwise be those of the double-precision
-//     Humlicek partials.  A thread that meets one sets the bit of that
-//     slot of the reverse map in its word of `defer`; a second kernel,
+//     Humlicek partials.  A thread that meets one records the first and
+//     last slot of the reverse map that hold such lanes in its word of
+//     `defer` (defer_mark; a line's SD-Voigt lanes lie within 100 aD of
+//     its centre, in consecutive slots); a second kernel,
 //     linesum_bwd_deferred, launched behind the sweep on the same
 //     stream, one thread per (layer, line), returns at once where the
-//     word is 0 and otherwise revisits the marked tiles, evaluates the
+//     word is 0 and otherwise revisits those slots alone, evaluates the
 //     SD-Voigt lanes alone and adds their sums to its own d_x[l, n];
 //   - no atomics and no split over wavenumbers: each d_x[l, n] has one
-//     owner thread in either kernel, the Lorentz pairs are summed in
-//     wavenumber order, then the SD-Voigt pairs in wavenumber order, so
-//     results are the same run to run;
+//     owner thread in either kernel.  Each slot's pairs are summed in
+//     wavenumber order from zero and that partial is added to the
+//     thread's total, slot by slot (sweep_slot, deferred_row), the order
+//     of the Pallas kernel and the plain adjoint, which add one block's
+//     vjp at a time; the Lorentz pairs first, then the SD-Voigt pairs.
+//     Results are the same run to run;
 //   - per-lane branches as in the forward: a line outside the window costs
 //     a compare, k2 is evaluated only where the mirror term or coupled O2
 //     needs it, and an invalid line (or one of no molecule) skips the
@@ -99,12 +104,6 @@ __device__ __forceinline__ Line load_line(
     return Line{nu_hi[n], nu_lo[n], sdep[n], shift[ln_idx], stild[ln_idx],
                 hw[ln_idx], VOIGT ? ad[ln_idx] : 0.0f,
                 VOIGT ? k3v[ln_idx] : 0.0f, ya[ln_idx], yb[ln_idx], fl};
-}
-
-// bit of slot s of the reverse map in a thread's word of `defer`; slots
-// from 31 on share the last bit
-__device__ __forceinline__ unsigned slot_bit(int s) {
-    return 1u << (s < 31 ? s : 31);
 }
 
 template <bool VOIGT>
@@ -163,8 +162,8 @@ linesum_bwd_sweep(
         }
         __syncthreads();
         if (!active) continue;
-        if (sweep_tile<VOIGT>(s_whi, s_wlo, g_s + m, n_mol, wt, ln, pre, acc))
-            marked |= slot_bit(s);
+        sweep_slot<VOIGT>(s, s_whi, s_wlo, g_s + m, n_mol, wt, ln, pre, acc,
+                          marked);
     }
     d_shift[ln_idx] = acc[D_SHIFT];
     d_stild[ln_idx] = acc[D_STILD];
@@ -212,15 +211,18 @@ __global__ void __launch_bounds__(DEFERRED_THREADS) linesum_bwd_deferred(
     float acc[N_COT];
 #pragma unroll
     for (int c = 0; c < N_COT; ++c) acc[c] = 0.0f;
-    for (int s = 0; s < n_rev; ++s) {
-        if (!(marked & slot_bit(s)) || !rvalid[k * n_rev + s]) continue;
+    const auto tile = [&](int s, const float*& whi, const float*& wlo,
+                          const float*& gt) {
+        if (s >= n_rev || !rvalid[k * n_rev + s]) return false;
         const int i = rmap[k * n_rev + s];
-        if (i < 0 || i >= n_wt) continue;
-        const float* gt = g + (static_cast<size_t>(l) * wp
-                               + static_cast<size_t>(i) * wt) * n_mol + m;
-        deferred_tile(wn_hi + i * wt, wn_lo + i * wt, gt, n_mol, wt, ln, pre,
-                      acc);
-    }
+        if (i < 0 || i >= n_wt) return false;
+        whi = wn_hi + i * wt;
+        wlo = wn_lo + i * wt;
+        gt = g + (static_cast<size_t>(l) * wp
+                  + static_cast<size_t>(i) * wt) * n_mol + m;
+        return true;
+    };
+    deferred_row(marked, tile, n_mol, wt, ln, pre, acc);
     d_shift[ln_idx] += acc[D_SHIFT];
     d_stild[ln_idx] += acc[D_STILD];
     d_hw[ln_idx] += acc[D_HW];
@@ -290,7 +292,8 @@ int kernel_info(K kernel, int threads, size_t smem, int* regs, int* blocks) {
 // [n_wt*wt]; nu_hi/nu_lo/sdep f32 and flags/mol int32 [n_lines];
 // shift..yb f32 [n_layers, n_lines]; g f32 [n_layers, n_wt*wt, n_mol];
 // d_* f32 [n_layers, n_lines]; defer int32 [n_layers, n_lines], scratch
-// that the call overwrites (d_ad, d_k3v, ad, k3v and defer are not read or
+// that the call overwrites with each (layer, line)'s deferral word
+// (defer_mark; n_rev < 65535) (d_ad, d_k3v, ad, k3v and defer are not read or
 // written, and may be null, when voigt == 0).  n_lines = k_tiles * nt.
 // Launches on `stream` (two kernels when voigt != 0), does not
 // synchronise, returns cudaGetLastError().

@@ -28,7 +28,9 @@
 //     generic tree_adjoint.
 // sweep_tile runs the first over a tile's wavenumbers, in a loop compiled
 // once per class of the branch trees, and reports whether it met lanes of
-// the second kind; deferred_tile revisits exactly those.  pair_adjoint,
+// the second kind; deferred_tile revisits exactly those.  sweep_slot and
+// deferred_row walk a row of the reverse map with them, one partial sum
+// per slot, and the deferral word between the two.  pair_adjoint,
 // the all-dual evaluation of either lane, is what the tests hold the
 // closed forms against.
 //
@@ -799,6 +801,78 @@ __device__ __forceinline__ void deferred_tile(const float* whi,
         if (!pair_of(whi[w], wlo[w], ln, p)) continue;
         if (lorentz_lane<true>(p.d1, pre)) continue;
         sd_pair_adjoint(p, ln, g[w * g_stride], acc);
+    }
+}
+
+// ---- one thread's walk over its row of the reverse map --------------------
+//
+// The adjoint kernels walk, for one (layer, line), the slots s of its line
+// tile's row of the reverse candidate map (the wavenumber tiles listing
+// it, in ascending order).  Each slot's pairs are summed from zero and
+// that partial sum is added to the (layer, line)'s total, as the Pallas
+// `_bwd_kernel` and the plain adjoint add one block's vjp at a time: the
+// rounding error grows with the number of slots, not of wavenumbers (one
+// running sum over the ~7e4 wavenumbers of a line's window at the
+// reference's capacity envelope, up to 625 slots, is C3's pattern).
+
+// The deferral word of one (layer, line): 0 where no slot holds an
+// SD-Voigt lane of the line, else (first + 1) << 16 | (last + 1) for the
+// first and last slot that do.  A line's SD-Voigt lanes lie within 100 aD
+// of its centre, so they fill consecutive slots (one or two tiles), and
+// the deferred pass visits those slots and no other.  Slots are marked in
+// ascending order; a row has fewer than 65535 slots (the wrapper checks).
+__device__ __forceinline__ unsigned defer_mark(unsigned word, int s) {
+    const unsigned first = word ? word >> 16 : static_cast<unsigned>(s) + 1u;
+    return first << 16 | (static_cast<unsigned>(s) + 1u);
+}
+__device__ __forceinline__ int defer_first(unsigned word) {
+    return static_cast<int>(word >> 16) - 1;
+}
+__device__ __forceinline__ int defer_last(unsigned word) {
+    return static_cast<int>(word & 0xffffu) - 1;
+}
+
+__device__ __forceinline__ void add_partial(float* acc, const float* part) {
+#pragma unroll
+    for (int c = 0; c < N_COT; ++c) acc[c] += part[c];
+}
+
+// The sweep's slot s of the row: the Lorentz lanes of the tile (whi, wlo,
+// g as for sweep_tile) summed from zero and added to acc; marks s in the
+// deferral word where the tile holds SD-Voigt lanes of the line.
+template <bool VOIGT>
+__device__ __forceinline__ void sweep_slot(int s, const float* whi,
+                                           const float* wlo, const float* g,
+                                           int g_stride, int wt,
+                                           const Line& ln, const LinePre& pre,
+                                           float* acc, unsigned& defer) {
+    float part[N_COT];
+#pragma unroll
+    for (int c = 0; c < N_COT; ++c) part[c] = 0.0f;
+    if (sweep_tile<VOIGT>(whi, wlo, g, g_stride, wt, ln, pre, part))
+        defer = defer_mark(defer, s);
+    add_partial(acc, part);
+}
+
+// The deferred pass over the slots its word names: each slot's SD-Voigt
+// lanes summed from zero and added to acc.  tile(s, whi, wlo, g) gives
+// slot s's wavenumbers and cotangent (g[w * g_stride]) and returns false
+// for an invalid slot.
+template <typename Tile>
+__device__ __forceinline__ void deferred_row(unsigned defer, Tile tile,
+                                             int g_stride, int wt,
+                                             const Line& ln,
+                                             const LinePre& pre, float* acc) {
+    if (!defer) return;
+    const int last = defer_last(defer);
+    for (int s = defer_first(defer); s <= last; ++s) {
+        const float *whi, *wlo, *g;
+        if (!tile(s, whi, wlo, g)) continue;
+        float part[N_COT];
+#pragma unroll
+        for (int c = 0; c < N_COT; ++c) part[c] = 0.0f;
+        deferred_tile(whi, wlo, g, g_stride, wt, ln, pre, part);
+        add_partial(acc, part);
     }
 }
 

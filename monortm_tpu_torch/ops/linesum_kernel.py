@@ -53,6 +53,8 @@ FLAGS = ("o2", "co2", "cpl", "xf1", "xf15", "valid")
 FLAG_BITS = {k: 1 << b for b, k in enumerate(FLAGS)}
 # CUDA's limit on gridDim.y, which carries the kernels' flat layer rows
 MAX_GRID_ROWS = 65535
+# the adjoint's deferral word packs two slot numbers + 1 in 16 bits each
+MAX_REV_SLOTS = 65535
 
 
 def row_blocks(n_rows: int) -> list[tuple[int, int]]:
@@ -286,15 +288,19 @@ class LineSumKernel:
         returns the seven cotangents in PER_LN order (None for ad and k3v
         with VOIGT=false, whose sum reads neither), one call per block of
         `row_blocks`.  With VOIGT=true the
-        call's deferral words stay in `.deferred` (int32 [L, N], a bit per
-        reverse-map slot in which the line has SD-Voigt lanes) until the
-        next call."""
+        call's deferral words stay in `.deferred` until the next call:
+        int32 [L, N], 0 where the line has no SD-Voigt lane, else
+        `deferral_span`'s first and last reverse-map slot that hold
+        them."""
         dev = pre["stild"].device
         L, n, bits, mol0 = _line_operands(pre, mol, nt)
         k_tiles = n // nt
         _check_maps(dev, ("rev_map", "rev_valid"), rev_map, rev_valid,
                     k_tiles)
         n_rev = rev_map.shape[1]
+        if n_rev >= MAX_REV_SLOTS:
+            raise ValueError(f"rev_map: {n_rev} slots per row, the deferral "
+                             f"word holds fewer than {MAX_REV_SLOTS}")
         _check_f32(dev, g=g)
         if g.ndim != 3 or g.shape[0] != L or g.shape[2] != n_mol \
                 or g.shape[1] % wt:
@@ -362,6 +368,14 @@ class LineSumKernel:
         if self.voigt:
             info["deferred"] = {"registers": out[4], "blocks_per_sm": out[5]}
         return info
+
+
+def deferral_span(words):
+    """(first, last) reverse-map slot of each deferral word that the
+    VOIGT=true adjoint left in `.deferred` (defer_mark in
+    csrc/linesum_math.cuh), -1 where the word is 0."""
+    w = words.to(torch.int64) & 0xffffffff
+    return (w >> 16) - 1, (w & 0xffff) - 1
 
 
 def reverse_map(cand_map: np.ndarray, cand_valid: np.ndarray,

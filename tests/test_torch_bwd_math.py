@@ -148,6 +148,97 @@ template <bool VOIGT> static void sweep() {
     }
 }
 
+// A row of the reverse map: slot s holds the wavenumbers [s*wt, (s+1)*wt).
+// For each line, the sweep (sweep_slot over every slot, in order) and the
+// deferred pass (deferred_row over its word, recording the slots it
+// visits), as the two kernels run them; beside them the same pairs through
+// split_pair summed slot by slot (the kernels' order: each slot's partial
+// from zero, Lorentz lanes, then SD-Voigt lanes), in one running sum per
+// pass (the order before the per-slot sums), and in double.  With hot,
+// again once per slot with the cotangent of that slot alone.
+template <bool VOIGT> static void row() {
+    int wt, n_slots, n_lines, hot;
+    if (scanf("%d %d %d %d", &wt, &n_slots, &n_lines, &hot) != 4) return;
+    const int nw = wt * n_slots;
+    std::vector<float> whi(nw), wlo(nw), g(nw), one(nw);
+    for (int w = 0; w < nw; ++w)
+        if (scanf("%f %f %f", &whi[w], &wlo[w], &g[w]) != 3) return;
+    Line ln;
+    for (int n = 0; n < n_lines && read_line(ln); ++n) {
+        const LinePre pre = line_pre<VOIGT>(ln);
+        std::vector<int> sd_slot(n_slots, 0);
+        for (int w = 0; w < nw; ++w) {
+            Pair p;
+            if (pair_of(whi[w], wlo[w], ln, p)
+                && !lorentz_lane<VOIGT>(p.d1, pre))
+                sd_slot[w / wt] = 1;
+        }
+        for (int s0 = -1; s0 < (hot ? n_slots : 0); ++s0) {
+            const float* gg = g.data();
+            if (s0 >= 0) {
+                for (int w = 0; w < nw; ++w)
+                    one[w] = w / wt == s0 ? g[w] : 0.0f;
+                gg = one.data();
+            }
+            float got[N_COT] = {0};
+            unsigned word = 0;
+            for (int s = 0; s < n_slots; ++s)
+                sweep_slot<VOIGT>(s, &whi[s * wt], &wlo[s * wt], &gg[s * wt],
+                                  1, wt, ln, pre, got, word);
+            std::vector<int> visits(n_slots, 0);
+            if (VOIGT) {
+                float sd[N_COT] = {0};
+                const auto tile = [&](int s, const float*& a,
+                                      const float*& b, const float*& c) {
+                    if (s >= n_slots) return false;
+                    visits[s] += 1;
+                    a = &whi[s * wt];
+                    b = &wlo[s * wt];
+                    c = &gg[s * wt];
+                    return true;
+                };
+                deferred_row(word, tile, 1, wt, ln, pre, sd);
+                for (int c = 0; c < N_COT; ++c) got[c] += sd[c];
+            }
+            float emu[N_COT] = {0}, emu_sd[N_COT] = {0}, run[N_COT] = {0},
+                  run_sd[N_COT] = {0};
+            double ref[N_COT] = {0};
+            for (int s = 0; s < n_slots; ++s) {
+                float part[N_COT] = {0}, part_sd[N_COT] = {0};
+                for (int w = s * wt; w < (s + 1) * wt; ++w) {
+                    Pair p;
+                    if (!pair_of(whi[w], wlo[w], ln, p)) continue;
+                    float term[N_COT] = {0};
+                    const bool lor = split_pair<VOIGT>(p, ln, gg[w], term);
+                    split_pair<VOIGT>(p, ln, gg[w], lor ? part : part_sd);
+                    split_pair<VOIGT>(p, ln, gg[w], lor ? run : run_sd);
+                    for (int c = 0; c < N_COT; ++c) ref[c] += term[c];
+                }
+                for (int c = 0; c < N_COT; ++c) {
+                    emu[c] += part[c];
+                    emu_sd[c] += part_sd[c];
+                }
+            }
+            int same = 1, most = 0, n_sd = 0, last_sd = -1;
+            for (int s = 0; s < n_slots; ++s) {
+                same &= (visits[s] > 0) == (sd_slot[s] > 0);
+                most = visits[s] > most ? visits[s] : most;
+                n_sd += sd_slot[s];
+                if (sd_slot[s]) last_sd = s;
+            }
+            printf("%d %d %u %d %d %d %d", n, s0, word, n_sd, last_sd, same,
+                   most);
+            for (int c = 0; c < N_COT; ++c) emu[c] += emu_sd[c];
+            for (int c = 0; c < N_COT; ++c) run[c] += run_sd[c];
+            put(got);
+            put(emu);
+            put(run);
+            for (int c = 0; c < N_COT; ++c) printf(" %.17e", ref[c]);
+            printf("\n");
+        }
+    }
+}
+
 int main(int argc, char** argv) {
     const bool voigt = argc > 2 && !strcmp(argv[2], "voigt");
     if (!strcmp(argv[1], "lorentz")) {
@@ -171,6 +262,8 @@ int main(int argc, char** argv) {
         voigt ? pairs<true>() : pairs<false>();
     } else if (!strcmp(argv[1], "sweep")) {
         voigt ? sweep<true>() : sweep<false>();
+    } else if (!strcmp(argv[1], "row")) {
+        voigt ? row<true>() : row<false>();
     }
     return 0;
 }
@@ -392,3 +485,115 @@ def test_sweep_and_deferred_visit_each_pair_once(exe, mode):
         assert err <= 2e-6 * scale, (mode, name, err, scale)
     if not voigt:
         assert (new[:, 3] == 0.0).all() and (new[:, 4] == 0.0).all()
+
+
+def _row_grid(rng, n_slots, wt, w0, dw):
+    """A row of n_slots tiles of wt wavenumbers from w0 by dw, and a
+    smooth cotangent (a line sum's cotangent varies slowly over a
+    line's window) with a little noise."""
+    wn = w0 + dw * np.arange(n_slots * wt)
+    whi = wn.astype(np.float32)
+    wlo = (wn - whi.astype(np.float64)).astype(np.float32)
+    g = (1.0 + 0.3 * np.sin(wn / 3.0)
+         + 0.05 * rng.normal(size=wn.size)).astype(np.float32)
+    return wn, whi, wlo, g
+
+
+def _row_lines(rng, voigt, wn, centres):
+    """One line of each class at each of `centres` (wavenumbers); with
+    `voigt`, narrow against its Doppler width (zeta < 0.99), its
+    SD-Voigt lanes (|detuning| <= 100 aD) within a few dozen points."""
+    lines = []
+    for flags in CLASSES.values():
+        ln = _line_rows(rng, len(centres), flags, voigt)
+        for row, nu in zip(ln, centres):
+            row = list(row)
+            row[0] = float(np.float32(nu))
+            row[1] = float(np.float32(nu - row[0]))
+            row[3] = 0.0
+            if voigt:
+                ad = 10.0 ** rng.uniform(-4.5, -3.7)
+                row[6] = float(np.float32(ad))
+                row[5] = float(np.float32(ad * 10.0 ** rng.uniform(-1, 1)))
+            lines.append(tuple(row))
+    return lines
+
+
+def _row_run(exe, mode, whi, wlo, g, lines, wt, hot):
+    n_slots = len(whi) // wt
+    rows = [(wt, n_slots, len(lines), int(hot))]
+    rows += [(float(a), float(b), float(c)) for a, b, c in zip(whi, wlo, g)]
+    got = _run(exe, ["row", mode], rows + lines)
+    assert got.shape[0] == len(lines) * (1 + hot * n_slots)
+    assert np.isfinite(got).all()
+    return got
+
+
+@pytest.mark.parametrize("mode", ["voigt", "lorentz"])
+def test_sweep_and_deferred_visit_each_pair_once_along_a_row(exe, mode):
+    """A row of 40 slots, SD-Voigt lanes in slots past 30 (one slot, and
+    two across a tile boundary) and before: the deferred pass visits the
+    slots that hold SD-Voigt lanes and no other, each once, and with the
+    cotangent of one slot at a time and of all, the two kernels' sums are
+    bit for bit those of every kept pair taken once, in the kernels'
+    order."""
+    voigt = mode == "voigt"
+    rng = np.random.default_rng(70 + voigt)
+    wt, n_slots = 128, 40
+    wn, whi, wlo, g = _row_grid(rng, n_slots, wt, 20.0, 0.69e-3)
+    at = lambda s, frac: float(wn[0] + (s + frac) * wt * 0.69e-3)
+    centres = [at(33, 0.4), at(38, 0.7), at(31, 0.0), at(36, 0.0),
+               at(30, 0.999), at(4, 0.5)]
+    got = _row_run(exe, mode, whi, wlo, g, _row_lines(rng, voigt, wn,
+                                                      centres), wt, True)
+    word = got[:, 2].astype(np.int64)
+    n_sd, last_sd, same, most = (got[:, c].astype(int) for c in range(3, 7))
+    kernel, emulated = got[:, 7:14], got[:, 14:21]
+    assert (kernel == emulated).all()
+    assert (same == 1).all() and (most <= 1).all()
+    first = (word >> 16) - 1
+    has = n_sd > 0
+    assert (word[~has] == 0).all()
+    assert ((word[has] & 0xFFFF) - 1 == last_sd[has]).all()
+    assert (first[has] == last_sd[has] - n_sd[has] + 1).all()
+    if voigt:
+        dense = got[:, 1] < 0
+        assert (dense & has & (first > 30)).sum() >= 20
+        assert (dense & (n_sd == 2) & (first > 30)).sum() >= 8
+        assert (dense & has & (last_sd < 31)).sum() >= 8
+    else:
+        assert not has.any()
+
+
+@pytest.mark.parametrize("mode", ["voigt", "lorentz"])
+def test_row_sums_slot_by_slot(exe, mode):
+    """C4: over a row of 500 slots (the reverse rows of the reference's
+    capacity envelope hold 233-625), each cotangent is the kernels'
+    per-slot order bit for bit, and within the adjoint's tolerance (rtol
+    2e-5, atol 1e-5 x max) of the float64 sum of the same float32 terms;
+    the running sum over every wavenumber, the order before, is printed
+    beside it on failure."""
+    voigt = mode == "voigt"
+    rng = np.random.default_rng(80 + voigt)
+    wt, n_slots = 128, 500
+    dw = 50.0 / (wt * n_slots)
+    wn, whi, wlo, g = _row_grid(rng, n_slots, wt, 2.5, dw)
+    centres = list(rng.uniform(26.0, 29.0, 4))
+    got = _row_run(exe, mode, whi, wlo, g, _row_lines(rng, voigt, wn,
+                                                      centres), wt, False)
+    kernel, emulated, running = got[:, 7:14], got[:, 14:21], got[:, 21:28]
+    ref = got[:, 28:35]
+    assert (kernel == emulated).all()
+    if voigt:
+        assert (got[:, 3] > 0).sum() >= 16
+    for c, name in enumerate(COT):
+        if not voigt and name in ("ad", "k3v"):
+            assert (kernel[:, c] == 0.0).all()
+            continue
+        scale = np.abs(ref[:, c]).max()
+        assert scale > 0.0, name
+        tol = 1e-5 * scale + 2e-5 * np.abs(ref[:, c])
+        err = np.abs(kernel[:, c] - ref[:, c])
+        run = np.abs(running[:, c] - ref[:, c])
+        assert (err <= tol).all(), (name, (err / scale).max(),
+                                    "running sum:", (run / scale).max())

@@ -16,6 +16,19 @@
   the pipeline's tile of 256), the port's `build_plan` gives the JAX
   `ODModel(use_pallas=True)` plans (unsegmented) array for array, with
   fewer candidate columns than a fifth of the line tiles.  Plans only.
+- The retrieval adjoint at the small envelope (`envelope.envelope_grad`:
+  value and gradient of mean((tb - tb_obs)^2) through `MonoRTM.tb`, the
+  plain adjoints on the CPU, the hybrid engine split) against
+  `jax.value_and_grad` of the same loss through the JAX `MonoRTM.tb` on
+  the same files, built by the JAX package's own readers, as
+  tests/test_torch_adjoint_tb.py runs it: engine "hybrid", the Pallas
+  kernel and its custom VJP in interpret mode on the all-Lorentz
+  predicate's layers.  The catalog's speed dependence is off on both
+  sides: the top layers reach 0.05 hPa, where the JAX SD-Voigt vjp is NaN
+  (tests/test_torch_adjoint.py).  Loss and the gradients by p, t, tz and
+  clw at rtol 1e-4, atol 1e-6 (test_torch_adjoint_tb.py's); by wkl at atol
+  1e-3 x max and not by wbrodl: JAX's float32 vjp drops the path through
+  the total column (tests/test_torch_adjoint.py).
 - The kernels' wrapper: `row_blocks` covers any row count in order in
   blocks of at most 65535 rows, and `launch` / `launch_bwd` call the
   entry point once per block with every per-row pointer offset to the
@@ -32,11 +45,16 @@ import numpy as np
 import pytest
 import torch
 
+from monortm_tpu.io.profin import read_profiles as j_read_profiles
 from monortm_tpu.io.tape3 import RawLines as JRawLines
+from monortm_tpu.io.tape5 import Tape5Reader as JTape5Reader
+from monortm_tpu.lines import load_catalog as j_load_catalog
 from monortm_tpu.lines import group as j_group
 from monortm_tpu.lines import pack as j_pack
 from monortm_tpu.lines import resolve as j_resolve
+from monortm_tpu.models.monortm import MonoRTM as JMonoRTM
 from monortm_tpu.models.od import ODModel as JODModel
+from monortm_tpu.ops.lineshape import LineConfig as JLineConfig
 from monortm_tpu.pipeline import run as j_run
 from monortm_tpu.testing import synthetic_catalog_mw as j_catalog
 from monortm_tpu_torch import envelope, pipeline
@@ -46,6 +64,7 @@ from monortm_tpu_torch.ops.lineshape import catalog_to_host
 from monortm_tpu_torch.ops.linesum import VOIGT_KERNEL
 from monortm_tpu_torch.ops.linesum_lorentz import LORENTZ_KERNEL
 from monortm_tpu_torch.testing import CAPACITY_TILE, capacity_catalog
+from monortm_tpu_torch.types import FIELDS
 from tests.test_torch_pipeline import ATOL, RTOL
 
 TOOL = Path(__file__).resolve().parents[1] / "tools" / "bench_envelope_e2e.py"
@@ -126,6 +145,69 @@ def test_small_envelope_writes_monortm_out_like_jax(small_envelope):
     for a, b in zip(mine["result"].results, ref.results):
         np.testing.assert_allclose(np.asarray(a.otot), np.asarray(b.otot),
                                    rtol=RTOL, atol=ATOL)
+
+
+def _without_sd(cat):
+    return dataclasses.replace(cat, sdep=np.zeros_like(cat.sdep))
+
+
+def _jax_value_and_grad(files, lor):
+    """jax.value_and_grad of envelope_grad's loss through the JAX
+    MonoRTM.tb (engine "hybrid", Pallas in interpret mode) on the
+    envelope's files without speed dependence; asserts that its
+    all-Lorentz predicate picks the layers `lor`."""
+    import jax
+
+    prof = j_read_profiles(files["fileprof"])[0]
+    cfg = JTape5Reader(files["filein"]).read_block()
+    cat = _without_sd(j_load_catalog(files["hfile"], float(cfg.wn[0]),
+                                     float(cfg.wn[-1]),
+                                     tile=pipeline.LINE_TILE))
+    jm = JMonoRTM(cfg.wn, cfg.dvset, cat, nmol=prof.meta.nmol,
+                  line_cfg=JLineConfig(ibrd=cfg.ibrd), dtype=jnp.float32,
+                  use_pallas=True, pallas_wn_tile=pipeline.WN_TILE,
+                  pallas_line_tile=pipeline.LINE_TILE)
+    st = jax.tree_util.tree_map(lambda v: jnp.asarray(v, jnp.float32),
+                                prof.state)
+    rows = np.asarray(jm.od_model.all_lorentz(st, per_layer=True))
+    assert tuple(np.nonzero(rows)[0].tolist()) == tuple(lor)
+    emis = jnp.full(len(cfg.wn), 0.95, jnp.float32)
+    tb_of = lambda s: jm.tb(s, jnp.float32(288.0), emis, 1.0 - emis, irt=3,
+                            engine="hybrid", lor_layers=tuple(lor))
+    obs = tb_of(dataclasses.replace(st, t=st.t + 1.0, tz=st.tz + 1.0))
+
+    def loss(*fields):
+        s = dataclasses.replace(st, **dict(zip(FIELDS, fields)))
+        return jnp.mean((tb_of(s) - obs) ** 2)
+
+    value, grads = jax.jit(jax.value_and_grad(
+        loss, argnums=tuple(range(len(FIELDS)))))(
+            *(getattr(st, f) for f in FIELDS))
+    return float(value), dict(zip(FIELDS, map(np.asarray, grads)))
+
+
+def test_small_envelope_gradient_matches_jax(small_envelope, monkeypatch):
+    from monortm_tpu_torch import lines
+
+    d, _, _ = small_envelope
+    files = dict(filein=d / "MONORTM.IN", fileprof=d / "MONORTM_PROF.IN",
+                 hfile=d / "TAPE3")
+    load = lines.load_catalog
+    monkeypatch.setattr(lines, "load_catalog",
+                        lambda *a, **k: _without_sd(load(*a, **k)))
+    model, state, _ = envelope.build_model(files, "cpu")
+    mine = envelope.envelope_grad(model, state, echo=lambda s: None)
+    assert mine["engine"] == "hybrid" and mine["grads_ok"]
+    assert 0 < len(mine["lor_layers"]) < SMALL["nlay"]
+    value, want = _jax_value_and_grad(files, mine["lor_layers"])
+    np.testing.assert_allclose(mine["loss"], value, rtol=1e-4, atol=1e-6)
+    got = {f: g.numpy() for f, g in mine["grads"].items()}
+    for f in ("p", "t", "tz", "clw"):
+        assert np.abs(want[f]).max() > 0, f
+        np.testing.assert_allclose(got[f], want[f], rtol=1e-4, atol=1e-6,
+                                   err_msg=f)
+    np.testing.assert_allclose(got["wkl"], want["wkl"], rtol=1e-4,
+                               atol=1e-3 * np.abs(want["wkl"]).max())
 
 
 def test_capacity_plans_match_jax():
@@ -226,3 +308,61 @@ def test_launch_offsets_rows_by_block(monkeypatch, direction, voigt):
     for i, nb in zip(pos["out"], row_bytes):
         assert first[i] != 0 and second[i] - first[i] == 65535 * nb
     assert got is not None
+
+
+def test_lane_counts_by_interval_match_lane_counts(small_envelope):
+    """chip_smoke.py counts the envelope's lanes by interval (its whole
+    plans would take lane_counts several minutes a kernel on the card);
+    on the small envelope's plans, as rebuilt from its files, and with
+    every layer at 0.02 hPa (SD-Voigt lanes in every row), the counts by
+    lane class, by class of the branch trees and the SD-Voigt lanes of
+    each (layer, line) are lane_counts' exactly."""
+    import chip_smoke
+
+    d, _, _ = small_envelope
+    files = dict(filein=d / "MONORTM.IN", fileprof=d / "MONORTM_PROF.IN",
+                 hfile=d / "TAPE3")
+    model, state, _ = envelope.build_model(files, "cpu")
+    _, lor = model.engine_split(state)
+    voigt = [i for i in range(SMALL["nlay"]) if i not in set(lor)]
+    vacuum = dataclasses.replace(state, p=torch.full_like(state.p, 0.02))
+    cases = (("full", state, voigt), ("lorentz", state, list(lor)),
+             ("full", vacuum, list(range(SMALL["nlay"]))))
+    for engine, st, layers in cases:
+        args = chip_smoke.operands(model, st, engine, layers)[:9]
+        want = chip_smoke.lane_counts(*args, voigt=engine == "full")
+        got = chip_smoke.lane_counts_by_interval(*args,
+                                                 voigt=engine == "full",
+                                                 rows_per_chunk=3)
+        assert got[0] == want[0] and got[2] == want[2], (engine, got, want)
+        assert torch.equal(got[1], want[1])
+        assert want[0][0] > 0 and want[0][1] > 0
+        if engine == "full":
+            assert want[0][2] + want[0][3] > 0
+
+
+def test_deferral_words_and_their_slot_limit(monkeypatch):
+    """The adjoint's deferral word packs the first and last slot (+ 1) of
+    a (layer, line)'s SD-Voigt lanes in 16 bits each (defer_mark in
+    csrc/linesum_math.cuh), 0 for none: `deferral_span` decodes it, up to
+    slot 65534, and `launch_bwd` refuses a reverse map of 65535 slots or
+    more before it calls the library."""
+    first = torch.tensor([0, 30, 31, 624, 65533])
+    last = torch.tensor([0, 32, 31, 624, 65534])
+    words = (((first + 1) << 16) | (last + 1)).to(torch.int32)
+    words = torch.cat([torch.zeros(1, dtype=torch.int32), words])
+    f, la = lk.deferral_span(words)
+    assert f.tolist() == [-1] + first.tolist()
+    assert la.tolist() == [-1] + last.tolist()
+    monkeypatch.setattr(lk._Library, "fns", {
+        "backward": lambda *a: pytest.fail("the library was called")})
+    monkeypatch.setattr(lk, "_stream", lambda dev: 0)
+    n, wt = 32, 32
+    pre = {key: torch.zeros((1, n)) for key in lk.PER_LN}
+    pre.update({key: torch.zeros(n) for key in lk.PER_L})
+    pre["flags"] = {key: torch.zeros(n) for key in lk.FLAGS}
+    rev = torch.zeros((1, lk.MAX_REV_SLOTS), dtype=torch.int32)
+    with pytest.raises(ValueError, match="deferral word"):
+        VOIGT_KERNEL.launch_bwd(pre, torch.ones(n, dtype=torch.int32),
+                                torch.zeros(wt), torch.zeros(wt), rev, rev,
+                                n, wt, 2, torch.zeros((1, wt, 2)))
