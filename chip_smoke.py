@@ -56,8 +56,15 @@ on the GPU):
     line-sum kernel launched, wall seconds, profiles/s, peak memory and
     the dense block's shape; profile 1 against the port's CPU float64
     pipeline on every 32nd wavenumber (Tb within 1e-9 K, total OD at rtol
-    1e-10, atol 1e-14); the float32 dense engine writes the same bytes
-    with `torch.backends.cuda.matmul.allow_tf32` on and off;
+    1e-10, atol 1e-14); the dense engine at other tiles (F64_TILES, 64
+    wavenumbers x 512 lines: `run(engine="xla", wn_tile=64,
+    line_tile=512)`, the JAX CLI's flags), its chunk cap left to
+    `_max_batch`: every profile's Tb within 1e-9 K and total OD at rtol
+    1e-10 of the default tiles' run, every chunk dense and no kernel
+    launched, its wall seconds, profiles/s, peak memory and chunk cap
+    beside the default tiles'; the float32 dense engine writes the same
+    bytes with `torch.backends.cuda.matmul.allow_tf32` on and off, and
+    at F64_TILES a MONORTM.OUT within rtol 5e-5, atol 1e-4 K of them;
   10 an infrared-to-UV grid (three wavenumbers inside each activation
     range of the twelve sub-continua a microwave grid leaves off, and
     Rayleigh above 820 cm^-1) through the default float32 kernels and the
@@ -149,8 +156,9 @@ on the GPU):
 Run from the repository root:  python3 chip_smoke.py
 (`python3 chip_smoke.py --batch-stages` builds the kernels and runs only
 phase 8's stage-by-stage chunk comparison; `--envelope` builds them and
-runs only phases 14 and 15, printing their readings as JSON; `--mesh-rank DIR
-MESH` is one rank of phase 13's gradient check, started by phase 13.)
+runs only phases 14 and 15, printing their readings as JSON; `--float64`
+runs only phase 9, building nothing; `--mesh-rank DIR MESH` is one rank
+of phase 13's gradient check, started by phase 13.)
 Exits non-zero (and prints no result line) without a CUDA device or when
 any phase fails; a phase prints all of its comparisons before it fails.
 The line before the last two lists each kernel with its launches on the
@@ -279,6 +287,11 @@ CPU_WN_STEP = 8
 # oracle's float64 budgets (tests/test_e2e_oracle.py:27-28)
 F64_NPROF, F64_CAPS, F64_CPU_WN_STEP = 4, (4, 2), 32
 F64_TB_ATOL, F64_OD_RTOL, F64_OD_ATOL = 1e-9, 1e-10, 1e-14
+# phase 9: the dense engine's other tiles (wavenumbers, lines), the JAX
+# CLI's --wn-tile / --line-tile; float32 MONORTM.OUT there against the
+# default tiles' at the pipeline's tolerance (tests/test_torch_pipeline.py)
+F64_TILES = (64, 512)
+RTOL_OUT, ATOL_OUT = 5e-5, 1e-4
 # phase 11: cross-sections at full width, cut to XS_NPROF profiles;
 # profile 1 against the CPU on every XS_CPU_WN_STEP-th wavenumber (the
 # CPU's plain Voigt sums take minutes for all 1024)
@@ -745,22 +758,29 @@ def engines_agree(model, state) -> tuple:
     return lor, bool(torch.equal(a, b)), float((a - b).abs().max())
 
 
+def pipeline_lines():
+    """The TAPE3 lines of phases 8 and 9: bench.py's 3074.
+
+    The first N2 line is moved to the front, so that every 250-record
+    panel of the TAPE3 ends on a line and not on an O2 coupling record:
+    the reader skips a panel whose last record's wavenumber field (there a
+    coupling coefficient, negative for some) lies below max(0, v1 - 25)
+    (RDLNFL's panel skip), and this way the run keeps all 3074 lines."""
+    from monortm_tpu_torch.io.tape3 import RawLines
+    from monortm_tpu_torch.testing import synthetic_catalog_mw
+
+    raw = synthetic_catalog_mw(n_h2o=2048, n_o2=1024, raw_lines=True)
+    order = np.r_[len(raw) - 2, :len(raw) - 2, len(raw) - 1]
+    return RawLines(**{f: getattr(raw, f)[order]
+                       for f in RawLines.__dataclass_fields__})
+
+
 def phase8_pipeline(tmp: Path, kernels, reset_counts) -> dict:
     """Phase 8 (see the module docstring); returns each forward kernel's
     launches in the first timed run at the cap of 64, and the lines."""
     from monortm_tpu_torch import pipeline
-    from monortm_tpu_torch.io.tape3 import RawLines
-    from monortm_tpu_torch.testing import synthetic_catalog_mw
 
-    # the first N2 line moved to the front, so that every 250-record panel
-    # of the TAPE3 ends on a line and not on an O2 coupling record: the
-    # reader skips a panel whose last record's wavenumber field (there a
-    # coupling coefficient, negative for some) lies below max(0, v1 - 25)
-    # (RDLNFL's panel skip), and this way the run keeps all 3074 lines
-    raw = synthetic_catalog_mw(n_h2o=2048, n_o2=1024, raw_lines=True)
-    order = np.r_[len(raw) - 2, :len(raw) - 2, len(raw) - 1]
-    raw = RawLines(**{f: getattr(raw, f)[order]
-                      for f in RawLines.__dataclass_fields__})
+    raw = pipeline_lines()
     write_rundir(tmp / "rundir", raw, PIPE_NPROF)
     write_rundir(tmp / "one", raw, 1, wn_step=CPU_WN_STEP)
     files = rundir_files(tmp / "rundir")
@@ -868,26 +888,58 @@ def phase8_pipeline(tmp: Path, kernels, reset_counts) -> dict:
     return {"launches": launches, "raw": raw}
 
 
+def same_tokens(a: Path, b: Path, rtol: float, atol: float) -> tuple:
+    """Two MONORTM.OUT files token by token: (lines and non-numeric tokens
+    equal, numeric tokens off by more than atol + rtol * |b|, the largest
+    numeric difference)."""
+    la, lb = a.read_text().splitlines(), b.read_text().splitlines()
+    same, bad, worst = len(la) == len(lb), 0, 0.0
+    for sa, sb in zip(la, lb):
+        ta, tb = sa.split(), sb.split()
+        same &= len(ta) == len(tb)
+        for x, y in zip(ta, tb):
+            try:
+                fx, fy = float(x), float(y)
+            except ValueError:
+                same &= x == y
+                continue
+            worst = max(worst, abs(fx - fy))
+            bad += abs(fx - fy) > atol + rtol * abs(fy)
+    return same, bad, worst
+
+
+def dense_block(files: Path, wn_tile: int, line_tile: int) -> str:
+    """The dense engine's block and tiles on phase 9's rundir."""
+    from monortm_tpu_torch import pipeline
+    from monortm_tpu_torch.lines import load_catalog
+    from monortm_tpu_torch.models.od import DENSE_ROWS, build_dense_tiles
+    from monortm_tpu_torch.ops.lineshape import catalog_to_host
+
+    cat = load_catalog(files["hfile"], 0.3, 55.0, tile=pipeline.LINE_TILE)
+    tiles = build_dense_tiles(cat, catalog_to_host(cat, torch.float64),
+                              np.linspace(0.3, 55.0, NWN), wn_tile,
+                              line_tile)
+    n_win = len(tiles["win"]["mol"])
+    return (f"{DENSE_ROWS} layer rows x {tiles['wt']} wavenumbers x "
+            f"{tiles['win']['mol'].shape[1]} windowed / "
+            f"{tiles['o2']['mol'].shape[1]} O2 lines; "
+            f"{len(tiles['cand'])} wavenumber tiles, {n_win} windowed and "
+            f"{len(tiles['o2_idx'])} O2 line tiles, "
+            f"{sum(map(len, tiles['cand']))} windowed candidates")
+
+
 def phase9_float64(tmp: Path, raw, kernels, reset_counts) -> None:
     """Phase 9 (see the module docstring)."""
     from monortm_tpu_torch import pipeline
-    from monortm_tpu_torch.lines import load_catalog
-    from monortm_tpu_torch.models.od import (DENSE_LINE_TILE, DENSE_ROWS,
-                                             DENSE_WN_TILE, build_dense_tiles)
-    from monortm_tpu_torch.ops.lineshape import catalog_to_host
+    from monortm_tpu_torch.models.od import DENSE_LINE_TILE, DENSE_WN_TILE
 
     write_rundir(tmp / "rundir_f64", raw, F64_NPROF)
     write_rundir(tmp / "one_sub", raw, 1, wn_step=F64_CPU_WN_STEP)
     files = rundir_files(tmp / "rundir_f64")
-    cat = load_catalog(files["hfile"], 0.3, 55.0, tile=pipeline.LINE_TILE)
-    tiles = build_dense_tiles(cat, catalog_to_host(cat, torch.float64),
-                              np.linspace(0.3, 55.0, NWN), DENSE_WN_TILE,
-                              DENSE_LINE_TILE)
-    log(f"  dense block: {DENSE_ROWS} layer rows x {tiles['wt']} "
-        f"wavenumbers x {tiles['win']['mol'].shape[1]} windowed / "
-        f"{tiles['o2']['mol'].shape[1]} O2 lines; "
-        f"{len(tiles['cand'])} wavenumber tiles")
-    outs = {}
+    for wt, lt in ((DENSE_WN_TILE, DENSE_LINE_TILE), F64_TILES):
+        log(f"  dense block at wn_tile {wt}, line_tile {lt}: "
+            f"{dense_block(files, wt, lt)}")
+    outs, walls, peaks = {}, {}, {}
     for name, cap in ((f"cap {F64_CAPS[0]}, run 1", F64_CAPS[0]),
                       (f"cap {F64_CAPS[0]}, run 2", F64_CAPS[0]),
                       (f"cap {F64_CAPS[1]}", F64_CAPS[1])):
@@ -897,9 +949,10 @@ def phase9_float64(tmp: Path, raw, kernels, reset_counts) -> None:
                              dtype=torch.float64)
         counts = {e: k.launches for e, k in kernels.items()}
         tb = np.stack(res.tb)
+        walls[name] = wall
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
         log(f"  float64 {name}: {wall:.3f} s, {F64_NPROF / wall:.4f} "
-            f"profiles/s, peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; chunks "
+            f"profiles/s, peak device memory {peaks[name]:.3f} GiB; chunks "
             f"{[(n, e) for n, e, _ in res.engines]}; line-sum kernel "
             f"launches {counts}")
         if tb.dtype != np.float64 or tb.shape != (F64_NPROF, NWN) \
@@ -942,23 +995,100 @@ def phase9_float64(tmp: Path, raw, kernels, reset_counts) -> None:
         FAILED.append(f"float64 profile 1 differs from the CPU pipeline: "
                       f"Tb {tb_err} K, OD max rel {od_rel}")
 
-    # the float32 dense engine with TF32 allowed writes the same bytes
+    # the dense engine at other tiles (the JAX CLI's --engine xla
+    # --wn-tile --line-tile), the chunk cap left to _max_batch: against
+    # the default tiles' run of the same chunk (the cap of 4)
+    wt, lt = F64_TILES
+    caps = []
+
+    def recorded(*a, **k):
+        """_max_batch, noting its arguments and the cap it chose."""
+        caps.append((a, k, best_max_batch(*a, **k)))
+        return caps[-1][2]
+
+    best_max_batch = pipeline._max_batch
+    pipeline._max_batch = recorded
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res_t, wall_t, _ = drive(files, tmp / "f64 tiles",
+                                 dtype=torch.float64, engine="xla",
+                                 wn_tile=wt, line_tile=lt)
+    finally:
+        pipeline._max_batch = best_max_batch
+    peak_t = torch.cuda.max_memory_allocated() / 2**30
+    counts = {e: k.launches for e, k in kernels.items()}
+    args, kw, cap_t = caps[0]
+    cap_0 = best_max_batch(*args, **{**kw, "wn_tile": DENSE_WN_TILE,
+                                     "line_tile": DENSE_LINE_TILE})
+    ref_res = outs[names[1]][1]
+    tb_t, tb_0 = np.stack(res_t.tb), np.stack(ref_res.tb)
+    tb_err = float(np.max(np.abs(tb_t - tb_0)))
+    ot_t = np.stack([r.otot for r in res_t.results])
+    ot_0 = np.stack([r.otot for r in ref_res.results])
+    od_bad = np.abs(ot_t - ot_0) > F64_OD_ATOL + F64_OD_RTOL * np.abs(ot_0)
+    od_rel = float(np.max(np.abs(ot_t - ot_0)
+                          / np.maximum(np.abs(ot_0), 1e-300)))
+    log(f"  float64 engine xla at wn_tile {wt}, line_tile {lt}: "
+        f"{wall_t:.3f} s, {F64_NPROF / wall_t:.4f} profiles/s, peak device "
+        f"memory {peak_t:.3f} GiB, _max_batch's cap {cap_t} (budget "
+        f"{args[4] / 2**30:.3f} GiB; {cap_0} at the default tiles); chunks "
+        f"{[(n, e) for n, e, _ in res_t.engines]}; line-sum kernel "
+        f"launches {counts}")
+    log(f"  ... against the default tiles ({DENSE_WN_TILE}, "
+        f"{DENSE_LINE_TILE}; {names[1]}: {walls[names[1]]:.3f} s, "
+        f"{F64_NPROF / walls[names[1]]:.4f} profiles/s, peak "
+        f"{peaks[names[1]]:.3f} GiB): Tb max_abs_err={tb_err:.3e} K, total "
+        f"OD max rel err {od_rel:.3e}, violations of rtol {F64_OD_RTOL} "
+        f"atol {F64_OD_ATOL}: {int(od_bad.sum())}")
+    if tb_t.shape != tb_0.shape or not np.isfinite(tb_t).all() \
+            or tb_err > F64_TB_ATOL or od_bad.any():
+        FAILED.append(f"float64 at tiles {F64_TILES} differs from the "
+                      f"default tiles: Tb {tb_err} K, OD max rel {od_rel}")
+    if any(counts.values()) or any(e != "dense" for _, e, _ in
+                                   res_t.engines):
+        FAILED.append(f"float64 at tiles {F64_TILES}: a float32 kernel "
+                      f"engine ran")
+
+    # the float32 dense engine with TF32 allowed writes the same bytes,
+    # and at F64_TILES the forward's tolerance of them
     f32 = {}
-    for tf32 in (False, True):
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for name, kw in (("tf32 False", {}),
+                     ("tf32 True", {}),
+                     ("tiles", dict(engine="xla", wn_tile=wt,
+                                    line_tile=lt))):
+        torch.backends.cuda.matmul.allow_tf32 = name == "tf32 True"
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
         try:
-            res, wall, _ = drive(files, tmp / f"f32 dense tf32 {tf32}",
-                                 dtype=torch.float32, engine="dense")
+            res, wall, _ = drive(files, tmp / f"f32 dense {name}",
+                                 dtype=torch.float32,
+                                 **({"engine": "dense"} | kw))
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
-        f32[tf32] = (tmp / f"f32 dense tf32 {tf32}" /
-                     "MONORTM.OUT").read_bytes()
-        log(f"  float32 dense engine, allow_tf32={tf32}: {wall:.3f} s, "
-            f"{F64_NPROF / wall:.4f} profiles/s")
+        counts = {e: k.launches for e, k in kernels.items()}
+        f32[name] = tmp / f"f32 dense {name}" / "MONORTM.OUT"
+        log(f"  float32 dense engine, {name}: {wall:.3f} s, "
+            f"{F64_NPROF / wall:.4f} profiles/s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; chunks "
+            f"{[(n, e) for n, e, _ in res.engines]}; line-sum kernel "
+            f"launches {counts}")
+        if any(counts.values()) or any(e != "dense" for _, e, _ in
+                                       res.engines):
+            FAILED.append(f"float32 dense {name}: a kernel engine ran")
+    same = f32["tf32 True"].read_bytes() == f32["tf32 False"].read_bytes()
     log(f"  float32 dense MONORTM.OUT with TF32 allowed vs not: "
-        f"byte-identical {f32[True] == f32[False]}")
-    if f32[True] != f32[False]:
+        f"byte-identical {same}")
+    if not same:
         FAILED.append("float32 dense MONORTM.OUT changes with allow_tf32")
+    ok, bad, worst = same_tokens(f32["tiles"], f32["tf32 False"], RTOL_OUT,
+                                 ATOL_OUT)
+    log(f"  float32 dense MONORTM.OUT at tiles {F64_TILES} vs the default "
+        f"tiles: layout equal {ok}, largest difference {worst:.3e}, "
+        f"violations of rtol {RTOL_OUT} atol {ATOL_OUT}: {bad}")
+    if not ok or bad:
+        FAILED.append(f"float32 dense MONORTM.OUT at tiles {F64_TILES} "
+                      f"differs from the default tiles' ({bad} tokens)")
 
 
 def phase10_infrared(cat, state, dev, kernels, reset_counts) -> None:
@@ -2055,6 +2185,16 @@ def main(argv=None) -> int:
     def reset_counts():
         for k in kernels.values():
             k.launches = k.bwd_launches = 0
+
+    if argv == ["--float64"]:
+        # phase 9 alone; the dense engine runs no kernel, so none is built
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            log(f"phase 9 float64 pipeline alone: {F64_NPROF} profiles, caps "
+                f"{F64_CAPS}, tiles {F64_TILES}")
+            phase9_float64(Path(tmp), pipeline_lines(), kernels,
+                           reset_counts)
+        phase_done(9)
+        return 0
 
     # ---- phase 1: build -------------------------------------------------
     t0 = time.perf_counter()

@@ -4,8 +4,11 @@ Reads MONORTM.IN (+ MONORTM_PROF.IN when IATM=0, TAPE3) and writes
 MONORTM.OUT and MONORTM.LOG (plus TAPE7, IOD=1 layer files and
 `--netcdf` files where asked), like PROGRAM MONORTM
 (monortm.f90:292-298), on one CUDA card unless `--device cpu`.  A port
-of `monortm_tpu.cli`.  `--precision float64` runs the dense line engine;
-`--engine` picks the line engine as `pipeline.run` does.
+of `monortm_tpu.cli`, taking every option of its command line with its
+meaning.  `--precision float64` runs the dense line engine; `--engine`
+picks the line engine as `pipeline.run` does (under the port's names or
+the JAX CLI's, xla and pallas); `--wn-tile` / `--line-tile` set the
+dense engine's block, and leave the kernels' plan as it is.
 
 Several ranks: start one process per rank with RANK, WORLD_SIZE,
 LOCAL_RANK, MASTER_ADDR and MASTER_PORT set (torchrun, or
@@ -36,6 +39,18 @@ def _mesh_arg(text: str):
     return (dims[0], dims[1], dims[2] if len(dims) == 3 else 1)
 
 
+def _tile_arg(text: str) -> int:
+    """A tile size: a positive integer."""
+    try:
+        n = int(text)
+    except ValueError:
+        n = 0
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"a tile must be a positive "
+                                         f"integer: {text!r}")
+    return n
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="monortm-tpu-torch",
                                  description=__doc__)
@@ -51,12 +66,21 @@ def main(argv=None):
                          "'cpu' (plain line sums)")
     ap.add_argument("--precision", choices=("float32", "float64"),
                     default="float32")
-    ap.add_argument("--engine", choices=("auto", "dense", "full", "hybrid"),
-                    default="auto",
+    ap.add_argument("--wn-tile", type=_tile_arg, default=128,
+                    help="the dense engine's block of wavenumbers (the JAX "
+                         "CLI's flag); the kernels keep their own plan")
+    ap.add_argument("--line-tile", type=_tile_arg, default=4096,
+                    help="the dense engine's block of lines (the JAX CLI's "
+                         "flag); the kernels keep their own plan")
+    ap.add_argument("--engine", default="auto",
+                    choices=("auto", "dense", "full", "hybrid", "xla",
+                             "pallas"),
                     help="line engine: auto (float32: both kernels through "
                          "the per-chunk engine split; float64: dense), "
-                         "dense, full (the VOIGT=true kernel alone) or "
-                         "hybrid; the kernels are float32 only")
+                         "dense or xla (the dense engine), full or pallas "
+                         "(the VOIGT=true kernel alone) or hybrid; the "
+                         "kernels are float32 only, and float64 with a "
+                         "kernel engine raises")
     ap.add_argument("--netcdf", action="store_true",
                     help="also write MONORTM.NNNNN.nc per profile "
                          "(USENETCDF build option of the reference)")
@@ -114,6 +138,7 @@ def main(argv=None):
                   hfile=args.hfile, fileout=args.fileout,
                   outdir=args.outdir, device=device,
                   dtype=getattr(torch, args.precision), engine=args.engine,
+                  wn_tile=args.wn_tile, line_tile=args.line_tile,
                   netcdf=args.netcdf, workers=args.workers, mesh=mesh)
         dt = time.time() - t0
         from monortm_tpu_torch.ops.linesum import VOIGT_KERNEL

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from monortm_tpu_torch.lines import PackedCatalog
-from monortm_tpu_torch.models.od import ODModel, ODResult
+from monortm_tpu_torch.models.od import (DENSE_LINE_TILE, DENSE_WN_TILE,
+                                         ODModel, ODResult)
 from monortm_tpu_torch.models.rt import RTResult, rtm
 from monortm_tpu_torch.ops.continuum import ContinuumFactors
 from monortm_tpu_torch.ops.lineshape import LineConfig
@@ -41,6 +42,17 @@ class MonoRTM:
     state: the retrieval adjoint is torch.autograd on `tb`, as
     jax.value_and_grad is on the JAX side; the line sum's backward is the
     adjoint kernel on the card and the plain adjoint on the CPU.
+
+    The keywords' names against the JAX `MonoRTM`'s (as `ODModel`'s):
+
+        JAX                                port
+        wn_tile / line_tile                dense_wn_tile / dense_line_tile
+        pallas_wn_tile / pallas_line_tile  wn_tile / line_tile
+        use_pallas                         kernels
+
+    `wn_tile` / `line_tile` are the kernel plan's tiles, `dense_wn_tile` /
+    `dense_line_tile` the dense engine's; `kernels=False` builds no kernel
+    plan and runs the dense engine alone.
     """
 
     def __init__(self, wn: np.ndarray, dvset: float, catalog: PackedCatalog,
@@ -48,13 +60,19 @@ class MonoRTM:
                  factors: ContinuumFactors = ContinuumFactors(),
                  line_cfg: LineConfig = LineConfig(), *, device="cuda",
                  dtype: torch.dtype = torch.float32,
-                 wn_tile: int = 128, line_tile: int = 256, mesh=None):
+                 wn_tile: int = 128, line_tile: int = 256,
+                 dense_wn_tile: int = DENSE_WN_TILE,
+                 dense_line_tile: int = DENSE_LINE_TILE,
+                 kernels: bool = True, mesh=None):
         self.wn = np.asarray(wn, np.float64)
         self.dtype = dtype
         self.od_model = ODModel(wn, dvset, catalog, nmol=nmol,
                                 factors=factors, line_cfg=line_cfg,
                                 device=device, dtype=dtype, wn_tile=wn_tile,
-                                line_tile=line_tile, mesh=mesh)
+                                line_tile=line_tile,
+                                dense_wn_tile=dense_wn_tile,
+                                dense_line_tile=dense_line_tile,
+                                kernels=kernels, mesh=mesh)
         self.device = self.od_model.device
 
     def engine_split(self, state: LayerState):

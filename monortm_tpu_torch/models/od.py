@@ -19,12 +19,15 @@ engine (`_build_line_tiles`, `_one_wtile`, `line_od`): eager PyTorch over
 always takes it, and asking it for a kernel engine raises.
 
 The dense sweep runs over blocks of a fixed shape: DENSE_ROWS flattened
-layer rows (the last block padded), DENSE_WN_TILE wavenumbers and
-DENSE_LINE_TILE lines (the JAX package's tiles).  So every product and
+layer rows (the last block padded), `dense_wn_tile` wavenumbers and
+`dense_line_tile` lines (the JAX package's `wn_tile` / `line_tile`,
+DENSE_WN_TILE and DENSE_LINE_TILE by default).  So every product and
 reduction in it sees the same shapes whatever the number of profiles in
 a call, and a profile's bits do not depend on the chunk it is computed
 in.  A model builds the dense tiles on the first call of the dense
-engine, so a float32 model that runs only the kernels never holds them.
+engine, so a float32 model that runs only the kernels never holds them;
+one built with `kernels=False` (the JAX `use_pallas=False`) builds no
+kernel plan and runs the dense engine alone.
 
 Cross-sections are host numpy (`ops.xsec`, the pipeline's `xsec-prep`
 stage); `od_xsec` adds their OD to the total.
@@ -71,19 +74,22 @@ from monortm_tpu_torch.types import FIELDS, LayerState
 
 ENGINES = ("full", "lorentz", "hybrid", "dense")
 _KERNELS = {"full": VOIGT_KERNEL, "lorentz": LORENTZ_KERNEL}
-# the dense sweep's block: layer rows, wavenumbers and lines (see the
-# module docstring)
+# the dense sweep's block: layer rows, and the default wavenumbers and
+# lines (the JAX package's wn_tile / line_tile defaults; see the module
+# docstring)
 DENSE_ROWS, DENSE_WN_TILE, DENSE_LINE_TILE = 64, 128, 4096
 # [rows, wavenumbers, lines] arrays a dense block holds at once
 # (line_od_block's shapes and their autograd-free temporaries)
 DENSE_LIVE = 48
 
 
-def dense_block_bytes(n_lines: int, itemsize: int) -> int:
+def dense_block_bytes(n_lines: int, itemsize: int, wn_tile: int,
+                      line_tile: int) -> int:
     """Device bytes the dense engine's block holds at once, whatever the
-    batch, for a catalog of `n_lines` lines at `itemsize` bytes."""
-    return (DENSE_ROWS * DENSE_WN_TILE * min(DENSE_LINE_TILE, n_lines)
-            * itemsize * DENSE_LIVE)
+    batch, for a catalog of `n_lines` lines at `itemsize` bytes swept in
+    tiles of `wn_tile` wavenumbers and `line_tile` lines."""
+    return (DENSE_ROWS * wn_tile * min(line_tile, n_lines) * itemsize
+            * DENSE_LIVE)
 
 
 @dataclasses.dataclass
@@ -340,16 +346,41 @@ class ODModel:
     """Optical depths for one spectral setup, on one device (the CUDA card
     unless `device` names another), in float32 (every engine) or float64
     (the dense engine); with `mesh`, this rank's block of a (prof, wn[,
-    line]) mesh (see the module docstring)."""
+    line]) mesh (see the module docstring).
+
+    The keywords' names against the JAX `ODModel` / `MonoRTM`'s:
+
+        JAX                                port
+        wn_tile / line_tile                dense_wn_tile / dense_line_tile
+        pallas_wn_tile / pallas_line_tile  wn_tile / line_tile
+        use_pallas                         kernels
+
+    so `wn_tile` / `line_tile` are the kernel plan's tiles and
+    `dense_wn_tile` / `dense_line_tile` the dense engine's.
+    `kernels=False` (the JAX `use_pallas=False`) builds no kernel plan: the
+    model runs the dense engine alone, and on a mesh its wavenumber split
+    follows the dense tile.  A kernel model (float32, `kernels=True`)
+    splits the grid by the kernels' tiles; its dense engine then raises
+    where the dense tile would split the grid otherwise.
+    """
 
     def __init__(self, wn: np.ndarray, dvset: float, catalog: PackedCatalog,
                  nmol: int = 39,
                  factors: ContinuumFactors = ContinuumFactors(),
                  line_cfg: LineConfig = LineConfig(), *, device="cuda",
                  dtype: torch.dtype = torch.float32,
-                 wn_tile: int = 128, line_tile: int = 256, mesh=None):
+                 wn_tile: int = 128, line_tile: int = 256,
+                 dense_wn_tile: int = DENSE_WN_TILE,
+                 dense_line_tile: int = DENSE_LINE_TILE,
+                 kernels: bool = True, mesh=None):
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64: {dtype}")
+        tiles = dict(wn_tile=wn_tile, line_tile=line_tile,
+                     dense_wn_tile=dense_wn_tile,
+                     dense_line_tile=dense_line_tile)
+        bad = {k: v for k, v in tiles.items() if int(v) < 1}
+        if bad:
+            raise ValueError(f"tiles must be positive: {bad}")
         # the device a tensor made there reports: a bare "cuda" becomes the
         # current card ("cuda:0"), so that `_check` accepts states made on
         # "cuda" (a torch.device("cuda") compares unequal to "cuda:0")
@@ -366,16 +397,24 @@ class ODModel:
         n_line = m.shape.get("line", 1) if m else 1
         shard = (n_wn, n_line, m.coords["wn"] if m else 0,
                  m.coords.get("line", 0) if m else 0)
-        # every engine's wavenumber tiles must split the grid alike
-        wts = {min(DENSE_WN_TILE, max(8, self.nwn))}
-        if dtype == torch.float32:
-            wts |= {max(128, (wn_tile // 128) * 128), 128}
+        # kernel plans only at float32, as the JAX use_pallas
+        self.kernels = bool(kernels) and dtype == torch.float32
+        self.dense_wn_tile = int(dense_wn_tile)
+        self.dense_line_tile = int(dense_line_tile)
+        # the wavenumber tiles of the engines this model's runs take must
+        # split the grid alike: the kernels' two plans, or the dense tile
+        # of a dense-only model (`dense` checks its own at first use)
+        if self.kernels:
+            wts = {max(128, (wn_tile // 128) * 128), 128}
+        else:
+            wts = {self._dense_wt()}
         blocks = {tuple(wn_blocks(self.nwn, wt, n_wn)) for wt in wts}
         if len(blocks) > 1:
             raise ValueError(f"wavenumber tiles {sorted(wts)} split the "
                              f"grid over {n_wn} wn ranks differently; take "
                              "wn_tile=128")
         blocks = blocks.pop()
+        self._split = (sorted(wts), blocks)
         self.wn_cols = blocks[shard[2]]
         self.wn_sizes = [c1 - c0 for c0, c1 in blocks]
         self.cont = ContinuumPlan(self.wn64, dvset=dvset, factors=factors,
@@ -384,11 +423,11 @@ class ODModel:
         self.catalog = catalog
         self.host_cat = catalog_to_host(catalog, dtype)
         self.dev_cat = catalog_to_device(self.host_cat, self.device)
-        self.default_engine = "full" if dtype == torch.float32 else "dense"
+        self.default_engine = "full" if self.kernels else "dense"
         self._shard = shard
         self._dense = None
         self.dev_plans = {}
-        if dtype == torch.float32:
+        if self.kernels:
             # the kernels' plans; the all-Lorentz engine gets its own
             # 128/128 plan over the same catalog unless the tiles already
             # match (as monortm_tpu's ODModel)
@@ -437,25 +476,42 @@ class ODModel:
 
     def _engine(self, engine):
         """`engine`, or the model's default for None; a kernel engine on a
-        float64 model raises (the kernels are float32)."""
+        float64 model, or on one built with kernels=False, raises."""
         engine = self.default_engine if engine is None else engine
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}: {engine!r}")
-        if engine != "dense" and self.dtype != torch.float32:
+        if engine != "dense" and not self.kernels:
+            which = (f"a {self.dtype} model" if self.dtype != torch.float32
+                     else "a model built with kernels=False")
             raise ValueError(
-                f"engine {engine!r} runs the float32 line-sum kernels; a "
-                f"{self.dtype} model takes engine='dense'")
+                f"engine {engine!r} runs the float32 line-sum kernels; "
+                f"{which} takes engine='dense'")
         return engine
+
+    def _dense_wt(self) -> int:
+        """The dense engine's wavenumber tile on this grid
+        (`build_dense_tiles`' own)."""
+        return min(self.dense_wn_tile, max(8, self.nwn))
 
     @property
     def dense(self) -> dict:
-        """The dense engine's tiles on the device, built on first use."""
+        """The dense engine's tiles on the device, built on first use.  On
+        a mesh they must split the grid over the wn ranks as the model's
+        columns do (a kernel model's are the kernels' 128-wide tiles)."""
         if self._dense is None:
             n_wn, n_line = self._shard[:2]
+            wt, (wts, blocks) = self._dense_wt(), self._split
+            if tuple(wn_blocks(self.nwn, wt, n_wn)) != blocks:
+                raise ValueError(
+                    f"the dense engine's wavenumber tile {wt} splits the "
+                    f"grid over {n_wn} wn ranks otherwise than the "
+                    f"kernels' tiles {wts}, which this model's columns "
+                    "follow; build it with kernels=False, or with "
+                    "dense_wn_tile=128")
             self._dense = dense_to_device(shard_dense(
                 build_dense_tiles(self.catalog, self.host_cat, self.wn64,
-                                  DENSE_WN_TILE, DENSE_LINE_TILE, n_wn,
-                                  n_line), *self._shard),
+                                  self.dense_wn_tile, self.dense_line_tile,
+                                  n_wn, n_line), *self._shard),
                 self.device, self.dtype)
         return self._dense
 
@@ -575,8 +631,9 @@ class ODModel:
         0.99, modm.f90:427) in every profile take the all-Lorentz engine,
         which equals the full one there.  The predicate is evaluated on
         the model's device; only the per-layer verdict comes to the
-        host.  A float64 model has only the dense engine: ("dense", ())."""
-        if self.dtype != torch.float32:
+        host.  A model without kernels (float64, or kernels=False) has
+        only the dense engine: ("dense", ())."""
+        if not self.kernels:
             return "dense", ()
         state = self._check(state)
         scor = self.tips.scor(state.t)

@@ -77,7 +77,8 @@ from monortm_tpu_torch.io.tape5 import Tape5Reader, count_profiles
 from monortm_tpu_torch.io.tape7 import write_tape7
 from monortm_tpu_torch.lines import load_catalog
 from monortm_tpu_torch.models.monortm import ForwardResult, MonoRTM
-from monortm_tpu_torch.models.od import ODResult, dense_block_bytes
+from monortm_tpu_torch.models.od import (DENSE_LINE_TILE, DENSE_WN_TILE,
+                                         ODResult, dense_block_bytes)
 from monortm_tpu_torch.models.rt import RTParts, RTResult
 from monortm_tpu_torch.models.rt import combine_boundary_np, rt_parts
 from monortm_tpu_torch.models.rt import lsum as _lsum
@@ -292,11 +293,14 @@ def _profile_bytes(nwn: int, nlay: int, nmol: int, n_lines: int,
 
 def _max_batch(nwn: int, nlay: int, nmol: int, n_lines: int,
                budget_bytes: float, itemsize: int = 4,
-               dense: bool = False, n_prof_shards: int = 1) -> int:
+               dense: bool = False, n_prof_shards: int = 1,
+               wn_tile: int = DENSE_WN_TILE,
+               line_tile: int = DENSE_LINE_TILE) -> int:
     """Cap the profile batch of a chunk so that its device work fits.
 
     Per profile `_profile_bytes`; the dense engine also holds one block
-    of fixed shape (`models.od.dense_block_bytes`), whatever the batch.
+    of fixed shape (`models.od.dense_block_bytes` at its tiles `wn_tile`
+    x `line_tile`), whatever the batch.
     This cap is what bounds a chunk on the card: the port keeps no limit
     on line-sum evaluations per call, since a CUDA launch has no
     execution time limit, and the kernels' wrapper launches any number
@@ -304,7 +308,8 @@ def _max_batch(nwn: int, nlay: int, nmol: int, n_lines: int,
     batch, so the cap scales with it and is rounded down to whole prof
     shards (the JAX package's n_prof_shards)."""
     per = _profile_bytes(nwn, nlay, nmol, n_lines, itemsize, dense)
-    fixed = dense_block_bytes(n_lines, itemsize) if dense else 0
+    fixed = (dense_block_bytes(n_lines, itemsize, wn_tile, line_tile)
+             if dense else 0)
     b = int(max(1, min(1024, n_prof_shards * (budget_bytes - fixed)
                        // max(1, per))))
     if b > n_prof_shards:
@@ -333,17 +338,21 @@ def _auto_mesh(nprof: int):
 
 
 # the line-sum kernel plan's tiles, lines and wavenumbers (the JAX
-# package's pallas_line_tile / pallas_wn_tile, not the 4096-line tiles of
-# its dense engine); the catalog is packed to the same line tile
+# package's pallas_line_tile / pallas_wn_tile, not the tiles of its dense
+# engine, `run`'s line_tile / wn_tile); the catalog is packed to the same
+# line tile
 LINE_TILE, WN_TILE = 256, 128
 
 
-ENGINES = ("auto", "dense", "full", "hybrid")
+# the JAX package's engine names, each the port's engine of that meaning
+ENGINE_ALIASES = {"xla": "dense", "pallas": "full"}
+ENGINES = ("auto", "dense", "full", "hybrid", *ENGINE_ALIASES)
 
 
 def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
         fileout="MONORTM.OUT", outdir=".", *, device="cuda",
         dtype: torch.dtype = torch.float32, engine: str = "auto",
+        wn_tile: int = DENSE_WN_TILE, line_tile: int = DENSE_LINE_TILE,
         emis_dir=None, netcdf: bool = False, profile_dir=None,
         workers=None, mesh="auto") -> RunResult:
     """Run the full MONORTM.IN -> MONORTM.OUT pipeline on one device or,
@@ -351,12 +360,17 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
 
     device: "cuda" (the default; raises without a card) or "cpu", where
     the line sums take their plain PyTorch versions.  dtype: float32 or
-    float64.  engine (the JAX package's choices under the port's names):
-    "auto" (float32: both line-sum kernels through the per-chunk engine
-    split; float64: "dense"), "dense" (the JAX package's "xla"), "full"
-    (the VOIGT=true kernel alone, its "pallas") or "hybrid" (the kernels
-    through the split); the kernels are float32, so "full" and "hybrid"
-    at float64 raise.  emis_dir: the directory of the EMISSION /
+    float64.  engine: "auto" (float32: both line-sum kernels through the
+    per-chunk engine split; float64: "dense"), "dense" or its JAX name
+    "xla" (the dense engine), "full" or its JAX name "pallas" (the
+    VOIGT=true kernel alone) or "hybrid" (the kernels through the split);
+    an alias runs, logs and reports as the port's name.  The kernels are
+    float32, so "full"/"pallas" and "hybrid" at float64 raise, where the
+    JAX package quietly takes its dense engine instead: that fallback
+    would hide the kernel the caller named.  wn_tile / line_tile (the
+    JAX package's, with its defaults): the dense engine's block of
+    wavenumbers and lines; the kernels keep their own plan (LINE_TILE,
+    WN_TILE).  emis_dir: the directory of the EMISSION /
     REFLECTION files (default: the "in" directory beside MONORTM.IN).
     workers: host processes for IATM=1 layering
     (atmos.tape5_atm.profiles_from_tape5_iter).  profile_dir: write a
@@ -370,10 +384,14 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
         raise ValueError(f"dtype must be float32 or float64: {dtype}")
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}: {engine!r}")
+    if min(wn_tile, line_tile) < 1:
+        raise ValueError(f"wn_tile and line_tile must be positive: "
+                         f"{wn_tile}, {line_tile}")
+    asked, engine = engine, ENGINE_ALIASES.get(engine, engine)
     if engine == "auto":
         engine = "hybrid" if dtype == torch.float32 else "dense"
     if engine != "dense" and dtype != torch.float32:
-        raise ValueError(f"engine {engine!r} runs the float32 line-sum "
+        raise ValueError(f"engine {asked!r} runs the float32 line-sum "
                          f"kernels; a {dtype} run takes engine='dense'")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -390,6 +408,10 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
     if cfg.nwn == 0:
         raise ValueError("no wavenumbers configured")
 
+    # packed to the kernel plan's line tile whatever line_tile is (the JAX
+    # package packs to min(line_tile, 4096), monortm_tpu/pipeline.py:315):
+    # both engines' tiles drop the padding lines (valid=0), so the pack
+    # tile changes no value
     with timer.stage("line-catalog"):
         catalog = load_catalog(hfile, float(wn[0]), float(wn[-1]),
                                tile=LINE_TILE)
@@ -594,7 +616,8 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                     factors=cfg.factors,
                     line_cfg=LineConfig(ibrd=cfg.ibrd), device=device,
                     dtype=dtype, wn_tile=WN_TILE, line_tile=LINE_TILE,
-                    mesh=mesh)
+                    dense_wn_tile=wn_tile, dense_line_tile=line_tile,
+                    kernels=engine != "dense", mesh=mesh)
         return model_cache[nmol]
 
     def produce():
@@ -637,7 +660,8 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                 bmax_of[key] = _max_batch(
                     len(wn), key[0], key[2], n_cat, budget,
                     itemsize=np.dtype(npdt).itemsize,
-                    dense=engine == "dense", n_prof_shards=n_prof_shards)
+                    dense=engine == "dense", n_prof_shards=n_prof_shards,
+                    wn_tile=wn_tile, line_tile=line_tile)
             if len(buffers[key]) >= bmax_of[key]:
                 yield emit(key)
         # layering is complete here: write the TAPE7 checkpoint artifact

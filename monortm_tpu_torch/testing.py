@@ -155,6 +155,22 @@ def make_minimal_rundir(dirpath, nprof: int = 1) -> None:
     write_tape3(d / "TAPE3", raw)
 
 
+def make_wide_rundir(dirpath, nprof: int = 3, nwn: int = 300):
+    """make_minimal_rundir with `nwn` wavenumbers over 0.3-8.7 cm^-1 in
+    MONORTM.IN's list (the default 300 split into several 128- and
+    64-wide tiles, the last ragged); returns the directory."""
+    from pathlib import Path
+
+    d = Path(dirpath)
+    make_minimal_rundir(d, nprof=nprof)
+    head, rest = _MIN_TAPE5.split("\n4\n", 1)
+    tail = rest.split("1.051763\n", 1)[1]
+    wn = np.linspace(0.3, 8.7, nwn)
+    (d / "MONORTM.IN").write_text(
+        head + f"\n{nwn}\n" + "".join(f"{w:.6f}\n" for w in wn) + tail)
+    return d
+
+
 def synthetic_state(nlay: int = 26, batch: int | None = None,
                     seed: int = 0, *, device="cuda",
                     dtype: torch.dtype = torch.float64) -> LayerState:

@@ -114,19 +114,26 @@ def test_xsec_code_byte_identical():
 _IMPORT = re.compile(r"^\s*(from|import)\s+monortm_tpu(\.|\s|$)", re.M)
 
 
-@pytest.mark.parametrize("n_wn,n_line,nwn", [(2, 1, 300), (4, 2, 700),
-                                            (2, 2, 40)])
-def test_dense_tiles_mesh_padding_is_the_jax_ones(n_wn, n_line, nwn):
+_MESHES = [(2, 1, 300), (4, 2, 700), (2, 2, 40)]
+# the default tiles keep the bare mesh ids
+_TILED_MESHES = [pytest.param(wt, lt, *m, id="-".join(
+    map(str, m if (wt, lt) == (128, 4096) else (wt, lt) + m)))
+    for wt, lt in ((128, 4096), (64, 512), (64, 32)) for m in _MESHES]
+
+
+@pytest.mark.parametrize("wn_tile,line_tile,n_wn,n_line,nwn", _TILED_MESHES)
+def test_dense_tiles_mesh_padding_is_the_jax_ones(wn_tile, line_tile, n_wn,
+                                                  n_line, nwn):
     """The dense engine's tiles on a mesh (`build_dense_tiles`'
-    n_wn / n_line padding and `shard_dense`) are the JAX
-    `ODModel(mesh=)` XLA engine's tiles (od.py:99, :198, :266)."""
+    n_wn / n_line padding and `shard_dense`) at wn_tile x line_tile are
+    the JAX `ODModel(wn_tile=, line_tile=, use_pallas=False, mesh=)` XLA
+    engine's tiles (od.py:99, :198, :266)."""
     import jax
     import jax.numpy as jnp
     import torch
     from monortm_tpu.models.od import ODModel as JODModel
     from monortm_tpu.parallel.sharding import make_mesh
-    from monortm_tpu_torch.models.od import (DENSE_LINE_TILE, DENSE_WN_TILE,
-                                             build_dense_tiles, shard_dense)
+    from monortm_tpu_torch.models.od import build_dense_tiles, shard_dense
     from monortm_tpu_torch.ops.lineshape import catalog_to_host
 
     wn = np.linspace(0.3, 55.0, nwn)
@@ -134,11 +141,11 @@ def test_dense_tiles_mesh_padding_is_the_jax_ones(n_wn, n_line, nwn):
     mesh = make_mesh(n_prof=1, n_wn=n_wn, n_line=n_line,
                      devices=jax.devices("cpu")[:n_wn * n_line])
     jm = JODModel(wn, 0.05, j_catalog(**kw), nmol=22, dtype=jnp.float64,
-                  use_pallas=False, wn_tile=DENSE_WN_TILE,
-                  line_tile=DENSE_LINE_TILE, mesh=mesh)
+                  use_pallas=False, wn_tile=wn_tile, line_tile=line_tile,
+                  mesh=mesh)
     cat = synthetic_catalog_mw(**kw)
     tiles = build_dense_tiles(cat, catalog_to_host(cat, torch.float64), wn,
-                              DENSE_WN_TILE, DENSE_LINE_TILE, n_wn, n_line)
+                              wn_tile, line_tile, n_wn, n_line)
     np.testing.assert_array_equal(tiles["wn"], jm.wn_tiles)
     k2 = len(tiles["o2"]["mol"])
     assert tiles["o2_cols"] * n_line == len(jm.o2_tiles["mol"])

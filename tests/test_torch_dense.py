@@ -172,21 +172,20 @@ def _host_state(dt, batch=3, nlay=5):
                           for f in FIELDS})
 
 
-def _od_models(dt, monkeypatch):
+def _od_models(dt):
     kw = dict(dvset=float(ODD_WN[1] - ODD_WN[0]), nmol=22)
     # 64-line tiles: several windowed tiles, candidate lists per tile
-    monkeypatch.setattr(od_mod, "DENSE_LINE_TILE", 64)
     jm = JODModel(ODD_WN, catalog=j_catalog(n_h2o=150, n_o2=24, tile=128),
                   dtype=JDT[dt], use_pallas=False, line_tile=64, **kw)
     pm = ODModel(ODD_WN, catalog=synthetic_catalog_mw(n_h2o=150, n_o2=24,
                                                       tile=128),
-                 device="cpu", dtype=dt, **kw)
+                 device="cpu", dtype=dt, dense_line_tile=64, **kw)
     return jm, pm
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-def test_dense_odmodel_matches_jax(dt, monkeypatch):
-    jm, pm = _od_models(dt, monkeypatch)
+def test_dense_odmodel_matches_jax(dt):
+    jm, pm = _od_models(dt)
     assert [len(c) for c in pm.dense["cand"]] == \
         np.asarray(jm.cand_mask).sum(axis=1).tolist()
     assert len(pm.dense["cand"]) == 2 and pm.dense["win"]["mol"].shape[0] > 2
@@ -202,12 +201,11 @@ def test_dense_odmodel_matches_jax(dt, monkeypatch):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-def test_dense_profile_bits_do_not_depend_on_the_batch(dt, monkeypatch):
-    monkeypatch.setattr(od_mod, "DENSE_LINE_TILE", 16)
+def test_dense_profile_bits_do_not_depend_on_the_batch(dt):
     wn = np.linspace(0.3, 55.0, 40)
     pm = ODModel(wn, float(wn[1] - wn[0]),
                  synthetic_catalog_mw(n_h2o=40, n_o2=12, tile=128), nmol=22,
-                 device="cpu", dtype=dt)
+                 device="cpu", dtype=dt, dense_line_tile=16)
     host = _host_state(dt, batch=3, nlay=22)   # 66 rows: two row blocks
     st = state_from_numpy(host, "cpu", dt)
     one = state_from_numpy(JLayerState(**{f: getattr(host, f)[2:]

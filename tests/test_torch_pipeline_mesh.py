@@ -9,9 +9,12 @@ over two wn ranks.  Held: MONORTM.OUT and the NetCDF files the bytes of
 the single-device run on meshes 1x2, 2x1 and 2x2 (2x1 and 2x2 pad the
 3-profile chunk to 4); on a line axis (1x1x2) Tb within 2e-3 K and the
 layer OD at rtol 2e-5, atol 2e-6 x max, and the same bytes twice; float64
-on 1x2 the bytes of the float64 single-device run; "auto" on two ranks
-the bytes of one; a mesh whose size is not the world's raises; a rank
-that fails stops the others.
+on 1x2 the bytes of the float64 single-device run; the dense engine at
+--wn-tile 64 (float64, and float32 --engine xla) on 1x2 the bytes of its
+single-device run, a hybrid run with that flag the default-tile hybrid
+bytes, and a kernel model's dense call split otherwise raises; "auto" on
+two ranks the bytes of one; a mesh whose size is not the world's raises;
+a rank that fails stops the others.
 """
 
 import os
@@ -23,22 +26,10 @@ import numpy as np
 import pytest
 
 from monortm_tpu_torch.parallel.distributed import spawn
-from monortm_tpu_torch.testing import _MIN_TAPE5, make_minimal_rundir
+from monortm_tpu_torch.testing import make_minimal_rundir, make_wide_rundir
 
 ROOT = Path(__file__).resolve().parents[1]
-NWN = 300
 ENV = {**os.environ, "OMP_NUM_THREADS": "2"}
-
-
-def _wide_rundir(d: Path, nprof: int = 3) -> Path:
-    """make_minimal_rundir with NWN wavenumbers in MONORTM.IN's list."""
-    make_minimal_rundir(d, nprof=nprof)
-    head, rest = _MIN_TAPE5.split("\n4\n", 1)
-    tail = rest.split("1.051763\n", 1)[1]
-    wn = np.linspace(0.3, 8.7, NWN)
-    (d / "MONORTM.IN").write_text(
-        head + f"\n{NWN}\n" + "".join(f"{w:.6f}\n" for w in wn) + tail)
-    return d
 
 
 def _cli_args(d: Path, out: str, *extra):
@@ -71,7 +62,7 @@ def _bytes(d: Path, out: str, name="MONORTM.OUT") -> bytes:
 
 @pytest.fixture(scope="module")
 def wide(tmp_path_factory):
-    d = _wide_rundir(tmp_path_factory.mktemp("wide"))
+    d = make_wide_rundir(tmp_path_factory.mktemp("wide"))
     _single(d, "single", "--netcdf")
     return d
 
@@ -118,6 +109,55 @@ def test_float64_mesh_cli(wide):
     _single(wide, "single64", "--precision", "float64")
     _ranks(wide, "mesh64", 2, "1x2", "--precision", "float64")
     assert _bytes(wide, "mesh64") == _bytes(wide, "single64")
+
+
+@pytest.mark.parametrize("extra", [("--precision", "float64"),
+                                   ("--engine", "xla")],
+                         ids=["float64", "float32-xla"])
+def test_dense_tile_mesh_cli(wide, extra):
+    """--wn-tile 64 on 1x2: a dense-only run splits the grid by its own
+    tile, [0, 192) | [192, 300) (the kernels' 128 would give [0, 256) |
+    [256, 300)), and writes the single-device bytes at the same tiles."""
+    tag = extra[-1]
+    _single(wide, f"single64t_{tag}", *extra, "--wn-tile", "64")
+    _ranks(wide, f"mesh64t_{tag}", 2, "1x2", *extra, "--wn-tile", "64")
+    assert _bytes(wide, f"mesh64t_{tag}") == _bytes(wide, f"single64t_{tag}")
+
+
+def test_hybrid_mesh_cli_takes_no_dense_tile(wide):
+    """A float32 hybrid run never enters the dense engine: --wn-tile 64 on
+    1x2 writes the bytes of the default-tile 1x2 hybrid run."""
+    _ranks(wide, "hybrid", 2, "1x2", "--engine", "hybrid")
+    _ranks(wide, "hybrid64t", 2, "1x2", "--engine", "hybrid",
+           "--wn-tile", "64")
+    assert _bytes(wide, "hybrid64t") == _bytes(wide, "hybrid")
+
+
+def test_dense_call_on_a_kernel_model_split_otherwise_raises():
+    """On rank 0 of a 1x2 mesh over 300 wavenumbers a kernel model built
+    with dense_wn_tile=64 takes the kernels' columns [0, 256), and its
+    dense engine raises naming both tiles; a dense-only model takes the
+    dense tile's [0, 192).  (A stand-in for the mesh: neither model
+    reaches a collective before the check.)"""
+    from types import SimpleNamespace
+
+    import torch
+
+    from monortm_tpu_torch.models.od import ODModel
+    from monortm_tpu_torch.testing import (synthetic_catalog_mw,
+                                           synthetic_state)
+    mesh = SimpleNamespace(shape={"prof": 1, "wn": 2},
+                           coords={"prof": 0, "wn": 0}, size=lambda: 2)
+    wn = np.linspace(0.3, 8.7, 300)
+    kw = dict(nmol=22, device="cpu", dense_wn_tile=64, mesh=mesh)
+    both = ODModel(wn, 0.03, synthetic_catalog_mw(), **kw)
+    alone = ODModel(wn, 0.03, synthetic_catalog_mw(), kernels=False, **kw)
+    assert both.wn_cols == (0, 256) and alone.wn_cols == (0, 192)
+    st = synthetic_state(nlay=3, device="cpu", dtype=torch.float32)
+    with pytest.raises(ValueError, match=r"tile 64 .* tiles \[128\].*"
+                                         r"kernels=False.*dense_wn_tile=128"):
+        both(st, engine="dense")
+    assert both._dense is None
 
 
 def test_auto_mesh_on_the_minimal_rundir(tmp_path):
