@@ -1,0 +1,7 @@
+"""The device's idle share over the traced retrieval steps, %."""
+
+from benchmark.metrics._idle import idle_percent
+
+
+def read(ctx):
+    return idle_percent(ctx)
