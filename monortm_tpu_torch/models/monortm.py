@@ -21,6 +21,7 @@ from monortm_tpu_torch.models.rt import RTResult, rtm
 from monortm_tpu_torch.ops.continuum import ContinuumFactors
 from monortm_tpu_torch.ops.lineshape import LineConfig
 from monortm_tpu_torch.types import LayerState
+from monortm_tpu_torch.utils.trace import traced
 
 
 @dataclasses.dataclass
@@ -92,11 +93,16 @@ class MonoRTM:
         """
         om = self.od_model
         od = om(state, engine=engine, lor_layers=lor_layers)
-        t_ = om.wn_entry(state.t.to(self.dtype))
-        tz = om.wn_entry(state.tz.to(self.dtype))
-        rt = rtm(od.od_total, t_[..., None, :], tz[..., None, :], om.wn_t,
-                 tsfc, om.local_wn(emis), om.local_wn(refl), irt)
-        return ForwardResult(rt=rt, od=od, emis=emis, refl=refl)
+
+        def rt(od_total, t, tz, tsfc, emis, refl):
+            t_ = om.wn_entry(t.to(self.dtype))
+            tz = om.wn_entry(tz.to(self.dtype))
+            return rtm(od_total, t_[..., None, :], tz[..., None, :], om.wn_t,
+                       tsfc, om.local_wn(emis), om.local_wn(refl), irt)
+
+        res = traced("rt", rt, od.od_total, state.t, state.tz, tsfc, emis,
+                     refl)
+        return ForwardResult(rt=res, od=od, emis=emis, refl=refl)
 
     def tb(self, state: LayerState, tsfc, emis, refl, irt: int,
            engine: str = None, lor_layers=None):

@@ -71,6 +71,7 @@ from monortm_tpu_torch.ops.tips import Tips
 from monortm_tpu_torch.parallel.distributed import (all_reduce, shared_input,
                                                     sum_partials)
 from monortm_tpu_torch.types import FIELDS, LayerState
+from monortm_tpu_torch.utils.trace import span, traced
 
 ENGINES = ("full", "lorentz", "hybrid", "dense")
 _KERNELS = {"full": VOIGT_KERNEL, "lorentz": LORENTZ_KERNEL}
@@ -417,12 +418,15 @@ class ODModel:
         self._split = (sorted(wts), blocks)
         self.wn_cols = blocks[shard[2]]
         self.wn_sizes = [c1 - c0 for c0, c1 in blocks]
-        self.cont = ContinuumPlan(self.wn64, dvset=dvset, factors=factors,
-                                  nmol=nmol, device=self.device)
-        self.tips = Tips(self.device, dtype)
+        with span("model-build.tables"):
+            self.cont = ContinuumPlan(self.wn64, dvset=dvset,
+                                      factors=factors, nmol=nmol,
+                                      device=self.device)
+            self.tips = Tips(self.device, dtype)
         self.catalog = catalog
-        self.host_cat = catalog_to_host(catalog, dtype)
-        self.dev_cat = catalog_to_device(self.host_cat, self.device)
+        with span("model-build.catalog"):
+            self.host_cat = catalog_to_host(catalog, dtype)
+            self.dev_cat = catalog_to_device(self.host_cat, self.device)
         self.default_engine = "full" if self.kernels else "dense"
         self._shard = shard
         self._dense = None
@@ -431,19 +435,21 @@ class ODModel:
             # the kernels' plans; the all-Lorentz engine gets its own
             # 128/128 plan over the same catalog unless the tiles already
             # match (as monortm_tpu's ODModel)
-            self.plan = build_plan(catalog, self.host_cat, self.wn64,
-                                   nt=line_tile, wt=wn_tile, n_wn=n_wn,
-                                   n_line=n_line)
-            if (line_tile, wn_tile) != (128, 128):
-                self.plan_lorentz = build_plan(catalog, self.host_cat,
-                                               self.wn64, nt=128, wt=128,
-                                               n_wn=n_wn, n_line=n_line)
-            else:
-                self.plan_lorentz = self.plan
-            self.dev_plans = {
-                e: plan_to_device(shard_plan(p, *shard), self.device)
-                for e, p in (("full", self.plan),
-                             ("lorentz", self.plan_lorentz))}
+            with span("model-build.plan"):
+                self.plan = build_plan(catalog, self.host_cat, self.wn64,
+                                       nt=line_tile, wt=wn_tile, n_wn=n_wn,
+                                       n_line=n_line)
+                if (line_tile, wn_tile) != (128, 128):
+                    self.plan_lorentz = build_plan(
+                        catalog, self.host_cat, self.wn64, nt=128, wt=128,
+                        n_wn=n_wn, n_line=n_line)
+                else:
+                    self.plan_lorentz = self.plan
+            with span("model-build.upload"):
+                self.dev_plans = {
+                    e: plan_to_device(shard_plan(p, *shard), self.device)
+                    for e, p in (("full", self.plan),
+                                 ("lorentz", self.plan_lorentz))}
         # this rank's wavenumbers in the compute dtype (== the plan's wn_hi
         # over the real grid)
         c0, c1 = self.wn_cols
@@ -635,15 +641,18 @@ class ODModel:
         only the dense engine: ("dense", ())."""
         if not self.kernels:
             return "dense", ()
-        state = self._check(state)
-        scor = self.tips.scor(state.t)
-        rows = all_lorentz_predicate(
-            self.dev_cat, state.p, state.t, state.wkl, state.wbrodl,
-            scor.reshape(scor.shape[:-2] + (39 * 9,)), self.line_cfg,
-            self.dtype)
-        rows = rows.reshape(-1, rows.shape[-1]).all(dim=0).to(torch.int32)
-        rows = all_reduce(rows, self.mesh and self.mesh.group("prof"), "min")
-        rows = rows.cpu().numpy().astype(bool)
+        with span("engine-split"):
+            state = self._check(state)
+            scor = self.tips.scor(state.t)
+            rows = all_lorentz_predicate(
+                self.dev_cat, state.p, state.t, state.wkl, state.wbrodl,
+                scor.reshape(scor.shape[:-2] + (39 * 9,)), self.line_cfg,
+                self.dtype)
+            rows = rows.reshape(-1, rows.shape[-1]).all(dim=0).to(
+                torch.int32)
+            rows = all_reduce(rows, self.mesh and self.mesh.group("prof"),
+                              "min")
+            rows = rows.cpu().numpy().astype(bool)
         if rows.all():
             return "lorentz", ()
         if rows.any():
@@ -667,32 +676,38 @@ class ODModel:
         dtype = self.dtype
         engine = self._engine(engine)
         state = self._check(state)
-        scor = self.tips.scor(state.t)
-        scor_flat = scor.reshape(scor.shape[:-2] + (39 * 9,))
 
-        od_lines = self.line_od(state, scor_flat, engine=engine,
-                                lor_layers=lor_layers)    # [..., L, W, M]
-        sw = LayerState(**{f: self.wn_entry(getattr(state, f))
-                           for f in FIELDS})
-        oc = {k: self.local_wn(v) for k, v in
-              self.cont(sw.p, sw.t, sw.wkl, sw.wbrodl, dtype=dtype).items()}
+        def lines(st):
+            scor = self.tips.scor(st.t)
+            return self.line_od(st, scor.reshape(scor.shape[:-2] + (39 * 9,)),
+                                engine=engine, lor_layers=lor_layers)
 
-        # cloud liquid water (modm.f90:264)
-        o_clw = od_clw(self.wn_t, sw.t[..., None], sw.clw[..., None])
+        def continuum(st):
+            sw = LayerState(**{f: self.wn_entry(getattr(st, f))
+                               for f in FIELDS})
+            oc = {k: self.local_wn(v) for k, v in self.cont(
+                sw.p, sw.t, sw.wkl, sw.wbrodl, dtype=dtype).items()}
+            # cloud liquid water (modm.f90:264)
+            return oc, od_clw(self.wn_t, sw.t[..., None], sw.clw[..., None])
 
-        # molecule-axis sum in a FIXED sequential order, as the JAX
-        # package's scan: the order does not depend on shapes or devices
-        total = torch.zeros_like(od_lines[..., 0])
-        for m in range(od_lines.shape[-1]):
-            total = total + od_lines[..., m]
-        for sp in SPECIES[:-1]:
-            total = total + oc[sp]
-        total = total + oc["rayleigh"] + o_clw
-        o_x = None
-        if od_xsec is not None:
-            o_x = self.local_wn(od_xsec.to(dtype))
-            total = total + o_x
+        def od_sum(od_lines, oc, o_clw, od_xsec):
+            # molecule-axis sum in a FIXED sequential order, as the JAX
+            # package's scan: the order does not depend on shapes or devices
+            total = torch.zeros_like(od_lines[..., 0])
+            for m in range(od_lines.shape[-1]):
+                total = total + od_lines[..., m]
+            for sp in SPECIES[:-1]:
+                total = total + oc[sp]
+            total = total + oc["rayleigh"] + o_clw
+            o_x = None
+            if od_xsec is not None:
+                o_x = self.local_wn(od_xsec.to(dtype))
+                total = total + o_x
+            return total, o_x
 
+        od_lines = traced("lines", lines, state)    # [..., L, W, M]
+        oc, o_clw = traced("continuum", continuum, state)
+        total, o_x = traced("od-sum", od_sum, od_lines, oc, o_clw, od_xsec)
         return ODResult(od_total=total.movedim(-2, -1),
                         od_by_mol=od_lines.movedim(-3, -1), oc=oc,
                         od_clw=o_clw, od_xsec=o_x)

@@ -807,7 +807,8 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
         try:
             pending = None
             while True:
-                nxt = q.get()
+                with timer.stage("queue-wait"):
+                    nxt = q.get()
                 if isinstance(nxt, tuple):
                     if nxt[0] == "err":
                         raise nxt[1]

@@ -1,4 +1,4 @@
-from monortm_tpu_torch.utils.trace import (StageTimer, named_scope,
-                                           profile_trace)
+from monortm_tpu_torch.utils.trace import (StageTimer, profile_trace, span,
+                                           traced)
 
-__all__ = ["StageTimer", "named_scope", "profile_trace"]
+__all__ = ["StageTimer", "profile_trace", "span", "traced"]
