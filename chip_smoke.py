@@ -152,13 +152,30 @@ on the GPU):
     each of the four kernels at the envelope (lanes counted by interval,
     `lane_counts_by_interval`, which phase 4 holds equal to `lane_counts`
     at the bench cell).
+  16 the LINES prologue kernels (csrc/prologue.cu, PROLOGUE_KERNEL):
+    the seven operands of `precompute` bitwise those of
+    `precompute_plain` on the same CUDA tensors, at the retrieval cell's
+    shape (8 x 40 rows of a 55-line microwave catalog, both engines'
+    plans), at 8 x 40 and 64 x 40 rows of `testing.prologue_catalog`
+    (every branch, IBRD 0 and 1) and at the envelope's 200 rows x 250k
+    lines (the worst ulps named where not); the adjoint against
+    `precompute_bwd_plain` and against autograd through
+    `precompute_plain` on the line sum's own cotangents (1e-6 of each
+    gradient's norm; at the envelope, 8 of its rows against the plain
+    adjoint on seeded cotangents), twice with the same bits; forward and
+    adjoint ms by CUDA events beside the plain versions' and a bound by
+    bytes, at the retrieval shape and the envelope; registers; one
+    value_and_grad step at the retrieval shape: its prologue launches by
+    the counters and the kernels inside the `lines` and `lines.bwd`
+    spans by the profiler (at most PRO_SPAN_LIMIT).
 
 Run from the repository root:  python3 chip_smoke.py
 (`python3 chip_smoke.py --batch-stages` builds the kernels and runs only
 phase 8's stage-by-stage chunk comparison; `--envelope` builds them and
-runs only phases 14 and 15, printing their readings as JSON; `--float64`
-runs only phase 9, building nothing; `--mesh-rank DIR MESH` is one rank
-of phase 13's gradient check, started by phase 13.)
+runs only phases 14 and 15, printing their readings as JSON; `--prologue`
+builds them and runs only phase 16, printing its readings as JSON;
+`--float64` runs only phase 9, building nothing; `--mesh-rank DIR MESH`
+is one rank of phase 13's gradient check, started by phase 13.)
 Exits non-zero (and prints no result line) without a CUDA device or when
 any phase fails; a phase prints all of its comparisons before it fails.
 The line before the last two lists each kernel with its launches on the
@@ -580,7 +597,8 @@ def operands(model, state, engine, layers):
     plan = od.dev_plans[engine]
     pre = precompute(plan["cat"], sub.p.reshape(-1), sub.t.reshape(-1),
                      sub.wkl.reshape(-1, 39), sub.wbrodl.reshape(-1),
-                     scor.reshape(-1, 39 * 9), od.line_cfg)
+                     scor.reshape(-1, 39 * 9), od.line_cfg,
+                     const=plan["const"])
     return (pre, plan["cat"]["mol"], plan["wn_hi"], plan["wn_lo"],
             plan["cand_map"], plan["cand_valid"], plan["nt"], plan["wt"],
             od.nmol, plan["rev"])
@@ -1988,7 +2006,8 @@ def phase15(kernels, reset_counts, built) -> dict:
                           for t in tiles[e]]).to(dev)
         ti = torch.tensor(tiles[e], device=dev)
         sub = {k: pre[k][rows][:, cols].contiguous() for k in PER_LN}
-        sub.update({k: pre[k][cols].contiguous() for k in PER_L})
+        sub.update({k: pre[k][cols].contiguous()
+                    for k in PER_L + ("bits", "mol0")})
         sub["flags"] = {k: v[cols].contiguous()
                         for k, v in pre["flags"].items()}
         captured[e] = dict(
@@ -2148,6 +2167,331 @@ def phase15(kernels, reset_counts, built) -> dict:
     return out
 
 
+# phase 16: the prologue's adjoint against its plain versions, in units of
+# each gradient's norm; the kernels a value_and_grad step may launch inside
+# its `lines` and `lines.bwd` spans at the retrieval shape (328 with the
+# prologue kernels, 4992 without; TIPS's forward and backward are some 200
+# of them); the rows of the retrieval shape and of the envelope
+PRO_TOL = 1e-6
+# at the envelope's 250k lines a row's gradient sums 250k seeded terms
+# in float32: there the adjoint is held to the larger of PRO_TOL and this
+# many times the plain float32 adjoint's own distance from float64
+PRO_F32_FACTOR = 4.0
+PRO_SPAN_LIMIT = 340
+PRO_BATCH, PRO_NLAY, PRO_ENV_ROWS = 8, 40, 200
+PRO_GRADS = ("p", "t", "wk", "wbrod", "scor_flat")
+
+
+def max_ulps(a, b) -> float:
+    """The largest distance of a from b in float32 ulps of b."""
+    ulp = torch.as_tensor(np.spacing(np.abs(b.float().cpu().numpy())),
+                          device=b.device).double()
+    return float(((a.double() - b.double()).abs()
+                  / ulp.clamp_min(float(np.spacing(np.float32(1e-30)))))
+                 .max())
+
+
+def rel_norm(a, b) -> float:
+    return float((a.double() - b.double()).norm()
+                 / b.double().norm().clamp_min(1e-300))
+
+
+def span_kernels(trace_file, names) -> tuple:
+    """({span: kernels}, all kernels, {span: {op: kernels}}) of a Chrome
+    trace of torch.profiler: each kernel counted in the innermost of the
+    `names` ranges open on the thread that launched it, when it was
+    launched, and under the innermost autograd node (else operator) open
+    there."""
+    ev = json.loads(Path(trace_file).read_text())["traceEvents"]
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["tid"], e["name"],
+               e.get("cat")) for e in ev
+              if e.get("cat") in ("user_annotation", "cpu_op")
+              and "dur" in e]
+    launch = {e["args"]["correlation"]: (e["ts"], e["tid"]) for e in ev
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out, total = dict.fromkeys(names, 0), 0
+    by_op = {n: {} for n in names}
+    for e in ev:
+        if e.get("cat") != "kernel":
+            continue
+        total += 1
+        at = launch.get(e.get("args", {}).get("correlation"))
+        if at is None:
+            continue
+        open_ = [(s1 - s0, n, c) for s0, s1, tid, n, c in ranges
+                 if tid == at[1] and s0 <= at[0] <= s1]
+        spans = [(d, n) for d, n, c in open_
+                 if c == "user_annotation" and n in names]
+        if spans:
+            span = min(spans)[1]
+            out[span] += 1
+            ops = [(d, n) for d, n, c in open_ if c == "cpu_op"]
+            nodes = [(d, n) for d, n in ops if "Backward" in n]
+            op = min(nodes or ops)[1] if ops else "(no operator)"
+            by_op[span][op] = by_op[span].get(op, 0) + 1
+    return out, total, by_op
+
+
+def retrieval_model(dev):
+    """The retrieval cell's shape: a model over upstream example case 1's
+    grid (101 wn, 0.2-1.2 cm^-1) and a 55-line microwave catalog, and a
+    state of PRO_BATCH x PRO_NLAY layers."""
+    from monortm_tpu_torch.models.monortm import MonoRTM
+    from monortm_tpu_torch.testing import (synthetic_catalog_mw,
+                                           synthetic_state)
+    wn = np.linspace(0.2, 1.2, 101)
+    mw = MonoRTM(wn, 0.01, synthetic_catalog_mw(n_h2o=21, n_o2=34),
+                 nmol=22, device=dev)
+    return mw, synthetic_state(nlay=PRO_NLAY, batch=PRO_BATCH, device=dev,
+                               dtype=torch.float32)
+
+
+def phase16_step(dev) -> dict:
+    """One value_and_grad step of phase 6's loss at the retrieval shape
+    under torch.profiler: the prologue's (forward, adjoint) launches by
+    its counters and the kernels inside the `lines` and `lines.bwd`
+    spans; fails the phase past PRO_SPAN_LIMIT."""
+    from monortm_tpu_torch.ops.linesum import PROLOGUE_KERNEL
+    from monortm_tpu_torch.types import LayerState
+    mw, st = retrieval_model(dev)
+    wn = mw.od_model.wn_t
+    emis = torch.full((len(wn),), 0.95, device=dev)
+    obs = torch.full((PRO_BATCH, len(wn)), 250.0, device=dev)
+    tsfc = torch.full((PRO_BATCH, 1), 288.0, device=dev)
+
+    def step():
+        eng, lor = mw.engine_split(st)
+        leaves = LayerState(**{f: getattr(st, f).detach().requires_grad_()
+                               for f in FIELDS})
+        tb = mw.tb(leaves, tsfc, emis, 1.0 - emis, irt=3, engine=eng,
+                   lor_layers=lor)
+        loss = torch.mean((tb - obs) ** 2)
+        torch.autograd.grad(loss, [getattr(leaves, f) for f in FIELDS])
+        torch.cuda.synchronize()
+        return eng, lor
+
+    step()
+    n0 = (PROLOGUE_KERNEL.launches, PROLOGUE_KERNEL.bwd_launches)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            eng, lor = step()
+        trace = Path(tmp) / "step.json"
+        prof.export_chrome_trace(str(trace))
+        by_span, total, by_op = span_kernels(trace, ("lines", "lines.bwd"))
+    counts = [PROLOGUE_KERNEL.launches - n0[0],
+              PROLOGUE_KERNEL.bwd_launches - n0[1]]
+    res = {"engine": eng, "lorentz_layers": len(lor),
+           "prologue_launches": counts, "span_kernels": by_span,
+           "kernels": total}
+    for span, ops in by_op.items():
+        top = sorted(ops.items(), key=lambda kv: -kv[1])
+        log(f"  {span} kernels by operator: {top}")
+    log(f"  value_and_grad at {PRO_BATCH} x {PRO_NLAY} ({eng}, "
+        f"{len(lor)} all-Lorentz layers): prologue (forward, adjoint) "
+        f"launches {counts}; kernels in lines {by_span['lines']}, "
+        f"lines.bwd {by_span['lines.bwd']} (limit {PRO_SPAN_LIMIT}), "
+        f"{total} in the step")
+    if sum(by_span.values()) > PRO_SPAN_LIMIT or not all(counts):
+        FAILED.append(f"value_and_grad: {by_span} kernels in the line "
+                      f"stage, prologue launches {counts}")
+    return res
+
+
+def phase16_prologue(dev) -> dict:
+    """Phase 16 (see the module docstring); returns its readings."""
+    from monortm_tpu_torch.ops.lineshape import (LineConfig,
+                                                 catalog_to_device,
+                                                 catalog_to_host)
+    from monortm_tpu_torch.ops.linesum import (PER_LN, PROLOGUE_KERNEL,
+                                               line_constants, precompute,
+                                               precompute_bwd_plain,
+                                               precompute_plain)
+    from monortm_tpu_torch.ops.linesum_kernel import PrologueKernel
+    from monortm_tpu_torch.testing import (capacity_catalog,
+                                           line_sum_cotangents,
+                                           prologue_device_catalog,
+                                           prologue_rows)
+
+    cfgs = {"ibrd0": LineConfig(),
+            "ibrd1": LineConfig(ibrd=1, sclcpl=0.9, sclhw=1.1, y0res=1e-3)}
+    out = {"registers": PrologueKernel.registers()}
+    log(f"  registers per thread: {out['registers']}")
+
+    def bitwise(what, cat, state, cfg, const=None):
+        with torch.no_grad():
+            got = precompute(cat, *state, cfg, const=const)
+            ref = precompute_plain(cat, *state, cfg)
+        torch.cuda.synchronize()
+        ulps = {k: 0.0 if torch.equal(got[k], ref[k])
+                else max_ulps(got[k], ref[k]) for k in PER_LN}
+        log(f"  {what}: {tuple(got['stild'].shape)} operands bitwise "
+            f"{[k for k, u in ulps.items() if u == 0.0]}"
+            + "".join(f"; {k} up to {u:.0f} ulps" for k, u in ulps.items()
+                      if u))
+        if any(ulps.values()):
+            FAILED.append(f"{what}: not bitwise: "
+                          f"{ {k: u for k, u in ulps.items() if u} }")
+        return ulps
+
+    def leaves_of(state):
+        return [v.detach().clone().requires_grad_() for v in state]
+
+    def kernel_grads(cat, state, cfg, g):
+        leaves = leaves_of(state)
+        pre = precompute(cat, *leaves, cfg)
+        outs = [(k, v) for k, v in zip(PER_LN, g) if v is not None]
+        return torch.autograd.grad([pre[k] for k, _ in outs], leaves,
+                                   [v for _, v in outs])
+
+    def adjoint(what, cat, state, cfg, g, eager=True):
+        """The adjoint twice, against the plain adjoint and autograd
+        through the plain prologue (eager), or, where eager is False,
+        against the plain adjoint in float64 on the same inputs, with the
+        plain float32 adjoint's own distance from it printed beside (its
+        index_add sums a row's lines one by one)."""
+        got = kernel_grads(cat, state, cfg, g)
+        again = kernel_grads(cat, state, cfg, g)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        tol = dict.fromkeys(PRO_GRADS, PRO_TOL)
+        if eager:
+            refs = {"plain": precompute_bwd_plain(cat, *state, cfg, g)}
+        else:
+            d = lambda v: None if v is None else v.double()
+            refs = {"plain float64": precompute_bwd_plain(
+                cat, *map(d, state), cfg, list(map(d, g)), torch.float64)}
+            plain32 = precompute_bwd_plain(cat, *state, cfg, g)
+            own = {n: rel_norm(a, b) for n, a, b in
+                   zip(PRO_GRADS, plain32, refs["plain float64"])}
+            tol = {n: max(PRO_TOL, PRO_F32_FACTOR * e) for n, e in own.items()}
+            log(f"  {what}: the plain float32 adjoint from float64: "
+                + ", ".join(f"{n} {e:.2e}" for n, e in own.items()))
+        if eager:
+            leaves = leaves_of(state)
+            pre = precompute_plain(cat, *leaves, cfg)
+            outs = [(k, v) for k, v in zip(PER_LN, g) if v is not None]
+            refs["autograd"] = torch.autograd.grad(
+                [pre[k] for k, _ in outs], leaves, [v for _, v in outs])
+        torch.cuda.synchronize()
+        errs = {r: {n: rel_norm(a, b) for n, a, b in zip(PRO_GRADS, got, ref)}
+                for r, ref in refs.items()}
+        log(f"  {what}: two runs bitwise: {same}; of each gradient's norm "
+            + "; ".join(f"vs {r} " + ", ".join(f"{n} {e:.2e}"
+                                              for n, e in v.items())
+                        for r, v in errs.items()))
+        if not same:
+            FAILED.append(f"{what}: two runs of the adjoint differ")
+        for r, v in errs.items():
+            if any(e > tol[n] for n, e in v.items()):
+                FAILED.append(f"{what}: adjoint vs {r} beyond {tol}: {v}")
+        return errs
+
+    def times(what, cat, const, state, cfg, reps, plain_bwd=True):
+        pro = const["pro"]
+        p, t, wk, wbrod, scor = (v.contiguous() for v in state)
+        wtot = torch.sum(wk, dim=-1) + wbrod
+        L, n = p.shape[0], pro["words"].shape[0]
+        k = PROLOGUE_KERNEL
+        fwd = lambda: k.launch(pro, cfg, p, t, wk, scor, wtot)
+        gen = torch.Generator(device=dev).manual_seed(16)
+        g = [torch.randn((L, n), generator=gen, device=dev) for _ in PER_LN]
+        bwd = lambda: k.launch_bwd(pro, cfg, p, t, wk, scor, wtot, g)
+        n0 = (k.launches, k.bwd_launches)
+        r = {"ms": cuda_ms(fwd, reps), "bwd_ms": cuda_ms(bwd, reps)}
+        r["launches_per_call"] = [(k.launches - n0[0]) / (reps + 1),
+                                  (k.bwd_launches - n0[1]) / (reps + 1)]
+        with torch.no_grad():
+            r["plain_ms"] = cuda_ms(
+                lambda: precompute_plain(cat, *state, cfg), max(1, reps // 4))
+        if plain_bwd:
+            leaves = leaves_of(state)
+            pre = precompute_plain(cat, *leaves, cfg)
+            r["plain_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                [pre[k_] for k_ in PER_LN], leaves, g, retain_graph=True),
+                max(1, reps // 4))
+            del pre, leaves
+        else:
+            r["plain_bwd_ms"] = "not measured"
+        cols = pro["cols"].shape[0] if cfg.ibrd else 26
+        row_in = L * (3 + 39 + 351) * 4
+        fwd_bytes = n * (cols + 1) * 4 + row_in + 7 * L * n * 4
+        bwd_bytes = (7 * L * n * 4 + n * (cols + 2) * 4 + row_in
+                     + L * (3 + 39 + 351) * 4)
+        r["bound_ms"] = fwd_bytes / 3.35e12 * 1e3
+        r["bwd_bound_ms"] = bwd_bytes / 3.35e12 * 1e3
+        r["bound_by"] = "bytes"
+        log(f"  {what} ({L} rows x {n} lines): forward {r['ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}), "
+            f"adjoint {r['bwd_ms']:.4f} ms (bound {r['bwd_bound_ms']:.4f}, "
+            f"plain {r['plain_bwd_ms'] if isinstance(r['plain_bwd_ms'], str) else format(r['plain_bwd_ms'], '.4f')}); "
+            f"launches per call {r['launches_per_call']}")
+        return r
+
+    # (a) the retrieval cell's shape
+    mw, st = retrieval_model(dev)
+    od = mw.od_model
+    scor = od.tips.scor(st.t).reshape(-1, 39 * 9)
+    mw_rows = (st.p.reshape(-1), st.t.reshape(-1), st.wkl.reshape(-1, 39),
+               st.wbrodl.reshape(-1), scor)
+    out["bitwise"] = {}
+    for eng, plan in od.dev_plans.items():
+        out["bitwise"][f"mw {eng}"] = bitwise(
+            f"retrieval shape, the {eng} plan", plan["cat"], mw_rows,
+            od.line_cfg, plan["const"])
+    for name, cfg in cfgs.items():
+        cat = prologue_device_catalog(device=dev)
+        for n_rep in (PRO_NLAY, 8 * PRO_NLAY):
+            rows = prologue_rows(n_rep=n_rep, dtype=torch.float32,
+                                 device=dev)
+            out["bitwise"][f"{name} {8 * n_rep}"] = bitwise(
+                f"prologue_catalog {name} {8 * n_rep} rows", cat, rows, cfg)
+    # (b) the adjoint on the line sum's own cotangents
+    out["adjoint"] = {}
+    for name, cfg in cfgs.items():
+        cat = prologue_device_catalog(device=dev)
+        rows = prologue_rows(n_rep=PRO_NLAY, dtype=torch.float32,
+                             device=dev)
+        for lorentz in (False, True):
+            g = line_sum_cotangents(cat, rows, cfg, torch.float32, lorentz)
+            what = f"adjoint {name} {'lorentz' if lorentz else 'voigt'}"
+            out["adjoint"][what] = adjoint(what, cat, rows, cfg, g)
+    plan = od.dev_plans["full"]
+    out["mw_times"] = times("retrieval shape", plan["cat"], plan["const"],
+                            mw_rows, od.line_cfg, 50)
+
+    # (c) one value_and_grad step at the retrieval shape
+    out["step"] = phase16_step(dev)
+
+    # (d) the envelope: 200 rows x 250k lines
+    t0 = time.perf_counter()
+    env = catalog_to_device(catalog_to_host(capacity_catalog()), dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    const = line_constants(env)
+    torch.cuda.synchronize()
+    out["envelope_line_constants_s"] = time.perf_counter() - t1
+    rows = prologue_rows(n_rep=PRO_ENV_ROWS // 8, dtype=torch.float32,
+                         device=dev)
+    log(f"  envelope catalog {env['mol'].shape[0]} lines, "
+        f"{const['pro']['runs'].shape[1]} runs, in "
+        f"{time.perf_counter() - t0:.1f} s; line_constants "
+        f"{out['envelope_line_constants_s']:.4f} s")
+    out["bitwise"]["envelope"] = bitwise("envelope", env, rows,
+                                         cfgs["ibrd0"], const)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    g = [torch.randn((8, env["mol"].shape[0]), generator=gen, device=dev)
+         for _ in PER_LN]
+    sub = tuple(v[::PRO_ENV_ROWS // 8] for v in rows)
+    out["adjoint"]["envelope 8 rows"] = adjoint(
+        "envelope, 8 rows, seeded cotangents", env, sub, cfgs["ibrd0"], g,
+        eager=False)
+    out["envelope_times"] = times("envelope", env, const, rows,
+                                  cfgs["ibrd0"], 5)
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -2157,9 +2501,9 @@ def main(argv=None) -> int:
     if argv[:1] == ["--mesh-rank"]:
         return mesh_rank(Path(argv[1]), argv[2])
     from monortm_tpu_torch.ops import linesum_kernel
-    from monortm_tpu_torch.ops.linesum import (VOIGT_KERNEL,
-                                               line_sum_bwd_plain,
-                                               precompute)
+    from monortm_tpu_torch.ops.linesum import (PROLOGUE_KERNEL,
+                                               VOIGT_KERNEL,
+                                               line_sum_bwd_plain)
     from monortm_tpu_torch.ops.linesum_lorentz import LORENTZ_KERNEL
     from monortm_tpu_torch.ops.lineshape import LineConfig
     from monortm_tpu_torch.ops.voigt import sdvoigt
@@ -2183,7 +2527,7 @@ def main(argv=None) -> int:
         check(not FAILED, f"phase {k}: " + "; ".join(FAILED))
 
     def reset_counts():
-        for k in kernels.values():
+        for k in (*kernels.values(), PROLOGUE_KERNEL):
             k.launches = k.bwd_launches = 0
 
     if argv == ["--float64"]:
@@ -2298,6 +2642,12 @@ def main(argv=None) -> int:
     small = MonoRTM(small_wn, float(small_wn[1] - small_wn[0]),
                     synthetic_catalog_mw(n_h2o=48, n_o2=16, tile=128),
                     nmol=22, device=dev)
+    if argv == ["--prologue"]:
+        log("phase 16 the LINES prologue kernels")
+        pro = phase16_prologue(dev)
+        phase_done(16)
+        print(json.dumps({"phase16": pro}))
+        return 0
     if argv == ["--envelope"]:
         # phases 14 and 15 alone
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2371,9 +2721,12 @@ def main(argv=None) -> int:
     out = forward()
     torch.cuda.synchronize()
     launches = {e: k.launches for e, k in kernels.items()}
-    log(f"  kernel launches in the forward: {launches}")
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the path did not launch: {launches}")
+    log(f"  kernel launches in the forward: {launches}, prologue "
+        f"{PROLOGUE_KERNEL.launches}")
+    check(all(n > 0 for n in launches.values())
+          and PROLOGUE_KERNEL.launches == len(launches),
+          f"a kernel of the path did not launch: {launches}, prologue "
+          f"{PROLOGUE_KERNEL.launches}")
     tb = out.rt.tb
     check(tuple(tb.shape) == (BATCH, NWN), f"tb shape {tuple(tb.shape)}")
     check(bool(torch.isfinite(tb).all()), "non-finite tb")
@@ -2535,10 +2888,13 @@ def main(argv=None) -> int:
                for e, k in kernels.items()}
     started = {e: k.bwd_kernels_started() - started[e]
                for e, k in kernels.items()}
+    counts6["prologue"] = (PROLOGUE_KERNEL.launches,
+                           PROLOGUE_KERNEL.bwd_launches)
     log(f"  loss {float(loss):.6e}; (forward, adjoint) launches: "
         f"{counts6}; kernels the adjoint library started: {started}")
     check(all(a > 0 and b > 0 for a, b in counts6.values()),
           f"a kernel of the path did not launch: {counts6}")
+    del counts6["prologue"]
     for f, gr in grads.items():
         log(f"  d loss / d {f}: max|g|={float(gr.abs().max()):.4e} "
             f"shape {tuple(gr.shape)}")
@@ -2737,6 +3093,11 @@ def main(argv=None) -> int:
         results[name].update(r)
     phase_done(15)
 
+    # ---- phase 16: the LINES prologue kernels ---------------------------
+    log("phase 16 the LINES prologue kernels")
+    prologue = phase16_prologue(dev)
+    phase_done(16)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -2757,7 +3118,8 @@ def main(argv=None) -> int:
              "envelope_kernel_ms", "envelope_lanes",
              "envelope_deferred_slots")
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + extra if k in r} for r in rows]}))
+        {k: r[k] for k in keys + extra if k in r} for r in rows],
+        "prologue": prologue}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -156,7 +156,8 @@ def _operands(model, state, engine, layers, dev):
     plan = od.dev_plans[engine]
     pre = precompute(plan["cat"], sub.p.reshape(-1), sub.t.reshape(-1),
                      sub.wkl.reshape(-1, 39), sub.wbrodl.reshape(-1),
-                     scor.reshape(-1, 39 * 9), od.line_cfg)
+                     scor.reshape(-1, 39 * 9), od.line_cfg,
+                     const=plan["const"])
     return (pre, plan["cat"]["mol"], plan["wn_hi"], plan["wn_lo"],
             plan["cand_map"], plan["cand_valid"], plan["nt"], plan["wt"],
             od.nmol, plan["rev"])

@@ -141,12 +141,14 @@ def main(argv=None):
                   wn_tile=args.wn_tile, line_tile=args.line_tile,
                   netcdf=args.netcdf, workers=args.workers, mesh=mesh)
         dt = time.time() - t0
-        from monortm_tpu_torch.ops.linesum import VOIGT_KERNEL
+        from monortm_tpu_torch.ops.linesum import (PROLOGUE_KERNEL,
+                                                   VOIGT_KERNEL)
         from monortm_tpu_torch.ops.linesum_lorentz import LORENTZ_KERNEL
         rank = dist.get_rank() if joined else 0
         print(f"monortm-tpu-torch: rank {rank}: line-sum kernel launches "
               + json.dumps({k.name: k.launches
-                            for k in (VOIGT_KERNEL, LORENTZ_KERNEL)}),
+                            for k in (VOIGT_KERNEL, LORENTZ_KERNEL,
+                                      PROLOGUE_KERNEL)}),
               flush=True)
         print(f"monortm-tpu-torch: {len(res.tb)} profile(s) x "
               f"{len(res.wn)} wavenumber(s) in {dt:.2f}s")

@@ -63,8 +63,8 @@ from monortm_tpu_torch.ops.continuum import (SPECIES, ContinuumFactors,
                                              ContinuumPlan)
 from monortm_tpu_torch.ops.lineshape import (LineConfig, catalog_to_device,
                                              catalog_to_host, line_od_block)
-from monortm_tpu_torch.ops.linesum import (VOIGT_KERNEL, line_od_forward,
-                                           reverse_map)
+from monortm_tpu_torch.ops.linesum import (VOIGT_KERNEL, line_constants,
+                                           line_od_forward, reverse_map)
 from monortm_tpu_torch.ops.linesum_lorentz import (LORENTZ_KERNEL,
                                                    all_lorentz_predicate)
 from monortm_tpu_torch.ops.tips import Tips
@@ -230,13 +230,16 @@ def shard_plan(plan: dict, n_wn: int, n_line: int, w: int, l: int) -> dict:
 
 def plan_to_device(plan: dict, device) -> dict:
     """A host plan's arrays as tensors on `device`, after checking that
-    every candidate index names a line tile of the catalog."""
+    every candidate index names a line tile of the catalog, with the
+    catalog's per-line constants of the line sum and its prologue
+    (`line_constants`), made once here rather than at every call."""
     n_tiles = len(plan["cat"]["mol"]) // plan["nt"]
     cm = plan["cand_map"]
     if cm.size and (cm.min() < 0 or cm.max() >= n_tiles):
         raise ValueError(f"candidate map names tiles outside [0, {n_tiles})")
+    cat = catalog_to_device(plan["cat"], device)
     return {
-        "cat": catalog_to_device(plan["cat"], device),
+        "cat": cat, "const": line_constants(cat),
         "nt": plan["nt"], "wt": plan["wt"],
         "wn_hi": torch.as_tensor(plan["wn_hi"], device=device),
         "wn_lo": torch.as_tensor(plan["wn_lo"], device=device),
@@ -618,7 +621,8 @@ class ODModel:
             flat(state.wkl, (state.wkl.shape[-1],)), flat(state.wbrodl, ()),
             scor_flat.reshape(-1, scor_flat.shape[-1]),
             cfg=self.line_cfg, n_mol=self.nmol, kernel=_KERNELS[engine],
-            rev=plan["rev"], grad_group=m and m.group("wn", "line"))
+            rev=plan["rev"], grad_group=m and m.group("wn", "line"),
+            const=plan["const"])
         # this rank's real wavenumbers; on a line axis, the sum over the
         # line ranks' candidate column blocks (linesum_pallas.py:636-656)
         sf = sum_partials(sf[:, :len(self.wn_t)], m and m.group("line"))

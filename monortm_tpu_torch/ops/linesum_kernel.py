@@ -1,11 +1,12 @@
 """Build, bind and launch the CUDA line-sum kernels (`csrc/`).
 
-Two sources, each a shared library with a plain C entry point: the
-forward sum `linesum.cu` and its adjoint `linesum_bwd.cu`; both include
-the device math of `linesum_math.cuh`.  They are compiled at first use
-with `nvcc`, one process per source started together, into `build/` at
-the repository root, under names keyed by a hash of the sources, the
-header and the flags, and loaded with ctypes.  Importing this module
+Three sources, each a shared library with plain C entry points: the
+forward sum `linesum.cu`, its adjoint `linesum_bwd.cu` and the LINES
+prologue with its adjoint `prologue.cu`; all include the device math of
+`linesum_math.cuh`, the prologue also `prologue_math.cuh`.  They are
+compiled at first use with `nvcc`, one process per source started
+together, into `build/` at the repository root, under names keyed by a
+hash of the source, the headers and the flags, and loaded with ctypes.  Importing this module
 needs neither nvcc nor a GPU.
 
 `LineSumKernel` is the wrapper of one instantiation (VOIGT true/false):
@@ -17,6 +18,12 @@ adjoint, whose entry point launches two kernels (the sweep over the
 Lorentz lanes and the pass over the SD-Voigt lanes it deferred), counts
 one.  The sum is a `torch.autograd.Function` whose backward is the
 adjoint kernel.
+
+`PrologueKernel` is the prologue's wrapper (`ops.linesum.precompute`
+calls it for CUDA float32 tensors; others take the plain PyTorch
+version): a `torch.autograd.Function` whose forward is one launch and
+whose backward is one call of the adjoint's entry point (two kernels),
+counted in `.launches` and `.bwd_launches`.
 
 Both kernels put the flat layer rows on gridDim.y, which CUDA caps at
 MAX_GRID_ROWS, so a wrapper calls the entry point once per block of at
@@ -38,9 +45,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from monortm_tpu_torch import constants as cst
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = {"forward": CSRC / "linesum.cu", "backward": CSRC / "linesum_bwd.cu"}
-HEADERS = (CSRC / "linesum_math.cuh",)
+SOURCES = {"forward": CSRC / "linesum.cu", "backward": CSRC / "linesum_bwd.cu",
+           "prologue": CSRC / "prologue.cu"}
+HEADERS = (CSRC / "linesum_math.cuh", CSRC / "prologue_math.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -139,6 +149,17 @@ BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p] * 9)
 
 
+# monortm_prologue_forward: ibrd, the host constants, the packed catalog
+# (columns, words), p, t, wtot, wk, scor, rows, lines, 7 outputs, stream
+PRO_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8)
+# monortm_prologue_backward: as the forward up to the sizes, 7 cotangents,
+# perm, runs, their count, the partial sums, 5 gradients, stream
+PRO_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+                    + [ctypes.c_int] + [ctypes.c_void_p] * 7)
+
+
 class _Library:
     """The loaded entry points (loaded once, at first launch)."""
 
@@ -148,8 +169,8 @@ class _Library:
     def get(cls, name: str):
         if not cls.fns:
             libs = build()
-            cls.fns = {**entry_points(ctypes.CDLL(str(libs["forward"]))),
-                       **entry_points(ctypes.CDLL(str(libs["backward"])))}
+            cls.fns = {k: v for lib in libs.values()
+                       for k, v in entry_points(ctypes.CDLL(str(lib))).items()}
         return cls.fns[name]
 
 
@@ -161,7 +182,11 @@ def entry_points(lib: ctypes.CDLL) -> dict:
             "backward_info": ("monortm_linesum_backward_info",
                               INFO_ARGTYPES),
             "backward_started": ("monortm_linesum_backward_kernels_started",
-                                 [ctypes.c_int])}
+                                 [ctypes.c_int]),
+            "prologue": ("monortm_prologue_forward", PRO_FWD_ARGTYPES),
+            "prologue_bwd": ("monortm_prologue_backward", PRO_BWD_ARGTYPES),
+            "prologue_info": ("monortm_prologue_info",
+                              [ctypes.POINTER(ctypes.c_int)])}
     fns = {}
     for role, (sym, argtypes) in sigs.items():
         if hasattr(lib, sym):
@@ -181,9 +206,20 @@ def _check_f32(dev, **tensors):
                              f"{v.device}")
 
 
+def flag_bits(flags: dict):
+    """The kernels' per-line flag word (FLAG_BITS) from the flags' 0/1
+    tensors."""
+    bits = None
+    for k, b in FLAG_BITS.items():
+        v = (flags[k] > 0.5).to(torch.int32) * b
+        bits = v if bits is None else bits | v
+    return bits.contiguous()
+
+
 def _line_operands(pre, mol, nt: int):
     """Checks shared by both kernels; returns (L, N, flag bits, 0-based
-    molecule) for the launch."""
+    molecule) for the launch: the words `ops.linesum.line_constants`
+    made with the plan."""
     dev = pre["stild"].device
     L, n = pre["stild"].shape
     _check_f32(dev, **{k: pre[k] for k in PER_LN + PER_L})
@@ -197,10 +233,13 @@ def _line_operands(pre, mol, nt: int):
         raise ValueError(f"mol: need [{n}] on {dev}")
     if n % nt or not 0 < nt <= 1024 or nt % 32:
         raise ValueError(f"unsupported line tile nt={nt} for {n} lines")
-    bits = torch.zeros(n, dtype=torch.int32, device=dev)
-    for k, b in FLAG_BITS.items():
-        bits |= (pre["flags"][k] > 0.5).to(torch.int32) * b
-    return L, n, bits, (mol - 1).to(torch.int32).contiguous()
+    for k in ("bits", "mol0"):
+        v = pre[k]
+        if v.shape != (n,) or v.device != dev or v.dtype != torch.int32 \
+                or not v.is_contiguous():
+            raise ValueError(f"{k}: need a contiguous int32 [{n}] tensor on "
+                             f"{dev}")
+    return L, n, pre["bits"], pre["mol0"]
 
 
 def _check_maps(dev, names, m, valid, rows: int | None = None):
@@ -370,6 +409,162 @@ class LineSumKernel:
         return info
 
 
+# the prologue's constants (csrc/prologue_math.cuh, Consts): each Python
+# number of line_params as PyTorch combines it with a float32 tensor,
+# rounded to float32, and for a division by a number, the float32
+# reciprocal of the rounded number that PyTorch multiplies by
+def prologue_consts(cfg) -> np.ndarray:
+    f = np.float32
+    xn0 = (1013.25 / (cst.BOLTZ * cst.T0)) * 1.0e3
+    recip = lambda x: f(1.0) / f(x)
+    return np.array([cst.BOLTZ, 1.0e3, recip(xn0), recip(1013.25),
+                     recip(cst.T0), -cst.RADCT, 1.0 / cst.T0,
+                     recip(cst.CLIGHT), 2.0 * cst.LN2 * cst.BOLTZ,
+                     cst.AVOGAD, cfg.sclcpl, cfg.y0res, cfg.sclhw],
+                    np.float32)
+
+
+# the adjoint's partial sums per (row, run): rhorat, t, rp, rp2, rho_mol,
+# the TIPS ratio, and with IBRD=1 the seven broadening densities
+N_ADJ = {False: 6, True: 13}
+# CUDA's limit on gridDim.y: the forward's line blocks, the adjoint's runs
+MAX_GRID_Y = 65535
+PROLOGUE_THREADS = 256
+
+
+class PrologueKernel:
+    """The LINES prologue on CUDA float32 tensors (csrc/prologue.cu) and
+    its launch counts.
+
+    Call with the prologue's per-line constants (`pro`, the packed
+    catalog of `ops.linesum.line_constants`), the LineConfig and the flat
+    rows p, t, wbrod [L], wk [L, 39], scor_flat [L, 351] (contiguous
+    float32 on one card).  Returns the seven operands (PER_LN order)
+    [L, N], differentiable in the five inputs.  `.launches` counts forward
+    launches and `.bwd_launches` calls of the adjoint's entry point (two
+    kernels each)."""
+
+    name = "prologue"
+
+    def __init__(self):
+        self.launches = 0
+        self.bwd_launches = 0
+
+    def __call__(self, pro, cfg, p, t, wk, wbrod, scor_flat):
+        return _Prologue.apply(self, pro, cfg, p, t, wk, wbrod, scor_flat)
+
+    @staticmethod
+    def _check(pro, p, t, wk, scor, wtot):
+        dev = p.device
+        L = p.shape[0]
+        _check_f32(dev, p=p, t=t, wk=wk, scor_flat=scor, wtot=wtot)
+        for k, v, shape in (("p", p, (L,)), ("t", t, (L,)),
+                            ("wtot", wtot, (L,)), ("wk", wk, (L, 39)),
+                            ("scor_flat", scor, (L, 351))):
+            if v.shape != shape:
+                raise ValueError(f"prologue {k}: shape {tuple(v.shape)} != "
+                                 f"{shape}")
+        n = pro["words"].shape[0]
+        _check_f32(dev, cols=pro["cols"])
+        for k in ("words", "perm", "runs"):
+            v = pro[k]
+            if v.device != dev or v.dtype != torch.int32 \
+                    or not v.is_contiguous():
+                raise ValueError(f"prologue {k}: need a contiguous int32 "
+                                 f"tensor on {dev}")
+        if -(-n // PROLOGUE_THREADS) > MAX_GRID_Y \
+                or pro["runs"].shape[1] > MAX_GRID_Y:
+            raise ValueError(f"prologue: {n} lines in "
+                             f"{pro['runs'].shape[1]} runs exceed the grid")
+        return L, n
+
+    def launch(self, pro, cfg, p, t, wk, scor, wtot):
+        """The forward launch: the seven operands [L, N]."""
+        L, n = self._check(pro, p, t, wk, scor, wtot)
+        dev = p.device
+        outs = [torch.empty((L, n), dtype=torch.float32, device=dev)
+                for _ in PER_LN]
+        consts = prologue_consts(cfg)
+        ptr = lambda v: v.data_ptr()
+        rc = _Library.get("prologue")(
+            int(cfg.ibrd != 0), consts.ctypes.data, ptr(pro["cols"]),
+            ptr(pro["words"]), ptr(p), ptr(t), ptr(wtot), ptr(wk),
+            ptr(scor), L, n, *(ptr(o) for o in outs), _stream(dev))
+        self.launches += 1
+        if rc != 0:
+            raise RuntimeError(f"prologue kernel launch failed: CUDA error "
+                               f"{rc}")
+        return tuple(outs)
+
+    def launch_bwd(self, pro, cfg, p, t, wk, scor, wtot, g):
+        """The adjoint for the cotangents g of the seven operands (PER_LN
+        order, None for zero): the gradients of p, t, wk, wbrod and
+        scor_flat."""
+        L, n = self._check(pro, p, t, wk, scor, wtot)
+        dev = p.device
+        for k, v in zip(PER_LN, g):
+            if v is not None:
+                _check_f32(dev, **{f"d{k}": v})
+                if v.shape != (L, n):
+                    raise ValueError(f"prologue d{k}: shape "
+                                     f"{tuple(v.shape)} != {(L, n)}")
+        ibrd = cfg.ibrd != 0
+        n_runs = pro["runs"].shape[1]
+        part = torch.empty((L, n_runs, N_ADJ[ibrd]), dtype=torch.float32,
+                           device=dev)
+        e = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                       device=dev)
+        gp, gt, gwk, gwbrod, gscor = e(L), e(L), e(L, 39), e(L), e(L, 351)
+        consts = prologue_consts(cfg)
+        ptr = lambda v: 0 if v is None else v.data_ptr()
+        rc = _Library.get("prologue_bwd")(
+            int(ibrd), consts.ctypes.data, ptr(pro["cols"]),
+            ptr(pro["words"]), ptr(p), ptr(t), ptr(wtot), ptr(wk),
+            ptr(scor), L, n, *(ptr(v) for v in g), ptr(pro["perm"]),
+            ptr(pro["runs"]), n_runs, ptr(part), ptr(gp), ptr(gt),
+            ptr(gwk), ptr(gwbrod), ptr(gscor), _stream(dev))
+        self.bwd_launches += 1
+        if rc != 0:
+            raise RuntimeError(f"prologue adjoint kernel launch failed: "
+                               f"CUDA error {rc}")
+        return gp, gt, gwk, gwbrod, gscor
+
+    @staticmethod
+    def registers() -> dict:
+        """Registers per thread of the forward and of the adjoint's two
+        kernels (IBRD=0; needs a CUDA device)."""
+        out = (ctypes.c_int * 3)()
+        rc = _Library.get("prologue_info")(out)
+        if rc != 0:
+            raise RuntimeError(f"prologue kernel info failed: CUDA error "
+                               f"{rc}")
+        return dict(zip(("forward", "bwd_runs", "bwd_rows"), out))
+
+
+class _Prologue(torch.autograd.Function):
+    """The prologue kernel forward, its adjoint kernel backward.  The
+    39-term column sum wtot = sum(wk) + wbrod is PyTorch's, as the plain
+    version forms it."""
+
+    @staticmethod
+    def forward(ctx, kernel, pro, cfg, p, t, wk, wbrod, scor):
+        wtot = torch.sum(wk, dim=-1) + wbrod
+        ctx.set_materialize_grads(False)
+        ctx.kernel, ctx.pro, ctx.cfg, ctx.wtot = kernel, pro, cfg, wtot
+        ctx.save_for_backward(p, t, wk, scor)
+        return kernel.launch(pro, cfg, p, t, wk, scor, wtot)
+
+    @staticmethod
+    def backward(ctx, *g):
+        if all(v is None for v in g):
+            return (None,) * 8
+        p, t, wk, scor = ctx.saved_tensors
+        g = tuple(None if v is None else v.contiguous() for v in g)
+        grads = ctx.kernel.launch_bwd(ctx.pro, ctx.cfg, p, t, wk, scor,
+                                      ctx.wtot, g)
+        return (None,) * 3 + grads
+
+
 def deferral_span(words):
     """(first, last) reverse-map slot of each deferral word that the
     VOIGT=true adjoint left in `.deferred` (defer_mark in
@@ -419,8 +614,7 @@ class _LineSum(torch.autograd.Function):
         ctx.kernel = kernel
         ctx.plan = (mol, wn_hi, wn_lo, cand_map, cand_valid, nt, wt, n_mol,
                     chi_fn, rev)
-        ctx.static = {k: pre[k] for k in PER_L}
-        ctx.static["flags"] = pre["flags"]
+        ctx.static = {k: v for k, v in pre.items() if k not in PER_LN}
         ctx.save_for_backward(*per_ln)
         if _device_kind(kernel, dev) == "cpu":
             return kernel.plain(pre, mol, wn_hi, wn_lo, cand_map, cand_valid,

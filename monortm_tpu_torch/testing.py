@@ -325,3 +325,128 @@ def make_xsec_rundir(dirpath, nprof: int = 1, nlay: int = 4, nwn: int = 16,
                     + xsec_block(species, xamnt, host.p, host.t))
     part.unlink()
     (d / "MONORTM_PROF.IN").write_text("".join(text))
+
+
+def prologue_catalog(n: int = 96, seed: int = 0) -> dict:
+    """Host catalog columns (`catalog_to_host`'s layout, both the float64
+    centre and its float32 split) whose lines reach every branch of the
+    prologue: H2O (3 isotopologues), coupled O2 (xg = -1), CO2 (plain,
+    xg = -3, xg = -5 with self mixing), N2 (molecule 22, outside the IBRD
+    molecules), xg = -3 / -5 on H2O, IBRD flags, speed dependence on half
+    the lines, and 8 padding lines (valid = 0, s0adj = 0, nu0 = 1)."""
+    rng = np.random.default_rng(seed)
+    kinds = np.arange(n) % 8
+    mol = np.choose(kinds, [1, 1, 7, 2, 2, 2, 22, 1]).astype(np.int32)
+    iso = np.where(mol == 1, 1 + np.arange(n) % 3, 1)
+    xg = np.choose(kinds, [0, -3, -1, 0, -3, -5, 0, -5]).astype(np.int32)
+    nu0 = np.sort(rng.uniform(0.5, 60.0, n))
+    c = {
+        "mol": mol, "iso_flat": ((mol - 1) * 9 + iso - 1).astype(np.int32),
+        "nu0": nu0,
+        "s0adj": 10 ** rng.uniform(-24, -20, n),
+        "e": rng.uniform(0.0, 900.0, n),
+        "alpf": rng.uniform(0.02, 0.1, n), "alps": rng.uniform(0.05, 0.5, n),
+        "tdep": rng.uniform(0.5, 0.8, n),
+        "pshift": rng.uniform(-0.01, 0.01, n),
+        "sdep": np.where(np.arange(n) % 2, rng.uniform(0.02, 0.12, n), 0.0),
+        "mass": np.choose(kinds, [18.0, 19.0, 32.0, 44.0, 45.0, 44.0, 28.0,
+                                  20.0]).astype(np.float64),
+        "xg": xg,
+        "a1": rng.uniform(-0.5, 0.5, (n, 4)),
+        "b1": rng.uniform(-0.05, 0.05, (n, 4)),
+        "a2": rng.uniform(-0.5, 0.5, (n, 4)),
+        "b2": rng.uniform(-0.05, 0.05, (n, 4)),
+        "self_mix": (xg == -5) & (np.arange(n) % 3 != 0),
+        "valid": np.ones(n, bool),
+        "brd_flg": ((rng.uniform(size=(n, 7)) < 0.4)
+                    & (mol[:, None] <= 7)).astype(np.int32),
+        "brd_hw": rng.uniform(0.02, 0.1, (n, 7)),
+        "brd_tmp": rng.uniform(0.5, 0.8, (n, 7)),
+        "brd_shft": rng.uniform(-0.01, 0.01, (n, 7)),
+    }
+    # a line of every molecule flagged for its own broadener, and one not
+    c["brd_flg"][0, 0] = 1
+    c["brd_flg"][8, 0] = 0
+    pad = slice(n - 8, n)
+    c["valid"][pad] = False
+    c["s0adj"][pad] = 0.0
+    c["nu0"][pad] = 1.0
+    c["mol"][pad] = 1
+    c["iso_flat"][pad] = 0
+    for k in ("s0adj", "e", "alpf", "alps", "tdep", "pshift", "sdep", "mass",
+              "a1", "b1", "a2", "b2", "brd_hw", "brd_tmp", "brd_shft"):
+        c[k] = np.asarray(c[k], np.float32)
+    c["nu0_hi"] = c["nu0"].astype(np.float32)
+    c["nu0_lo"] = (c["nu0"] - c["nu0_hi"].astype(np.float64)).astype(
+        np.float32)
+    return c
+
+
+# the prologue's test rows: temperatures below, in and above each TEMPLC
+# interval, pressures from the surface to the mesosphere
+PROLOGUE_T = (180.0, 215.0, 262.0, 296.0, 318.0, 352.0, 247.0, 199.5)
+PROLOGUE_P = (1013.0, 700.0, 300.0, 80.0, 12.0, 1.5, 0.2, 0.05)
+
+
+def prologue_rows(n_rep: int = 1, seed: int = 1, dtype=torch.float64,
+                  device="cpu"):
+    """Flat layer rows for the prologue: p, t, wk [L, 39], wbrod,
+    scor_flat [L, 351] of L = 8 * n_rep rows, with temperatures below,
+    in and above each TEMPLC interval (one on a node) and pressures from
+    the surface to the mesosphere."""
+    rng = np.random.default_rng(seed)
+    p = np.tile(PROLOGUE_P, n_rep) * rng.uniform(0.9, 1.1, 8 * n_rep)
+    t = np.tile(PROLOGUE_T, n_rep) + rng.uniform(-0.3, 0.3, 8 * n_rep)
+    t[6::8] = 250.0                       # on a TEMPLC node
+    L = len(p)
+    wk = np.zeros((L, 39))
+    col = p[:, None] * 1e19
+    wk[:, 0] = (col * rng.uniform(0.5, 40.0, (L, 1)))[:, 0]
+    wk[:, 1] = (col * 4.0)[:, 0]
+    wk[:, 2:7] = col * rng.uniform(0.001, 0.01, (L, 5))
+    wk[:, 6] = (col * 2000.0)[:, 0]
+    wk[:, 21] = (col * 7800.0)[:, 0]
+    wbrod = (col * 100.0)[:, 0]
+    scor = rng.uniform(0.5, 2.0, (L, 351))
+    t_ = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return t_(p), t_(t), t_(wk), t_(wbrod), t_(scor)
+
+
+def prologue_device_catalog(dtype=torch.float32, device="cpu",
+                            **kw) -> dict:
+    """`prologue_catalog` on `device` (`catalog_to_device`), its float
+    columns in `dtype` (the centre's split stays float32)."""
+    from monortm_tpu_torch.ops.lineshape import catalog_to_device
+    host = prologue_catalog(**kw)
+    f = np.float64 if dtype == torch.float64 else np.float32
+    for k, v in host.items():
+        if v.dtype == np.float32 and k not in ("nu0_hi", "nu0_lo"):
+            host[k] = v.astype(f)
+    return catalog_to_device(host, device)
+
+
+def line_sum_cotangents(cat, state, cfg, dtype, lorentz=False,
+                        seed: int = 2):
+    """The seven operands' cotangents as the line sum's adjoint hands them
+    back (`line_sum_bwd_plain`, or the all-Lorentz sum's, whose ad and
+    k3v are None) for a seeded cotangent of sf at the scale of the
+    columns that multiply it, over 64 wavenumbers across the band, every
+    line a candidate."""
+    from monortm_tpu_torch.ops.linesum import line_sum_bwd_plain, precompute
+    from monortm_tpu_torch.ops.linesum_lorentz import lorentz_sum_bwd_plain
+    n = cat["mol"].shape[0]
+    dev = cat["mol"].device
+    with torch.no_grad():
+        pre = precompute(cat, *state, cfg, dtype)
+    wn = np.linspace(0.3, 62.0, 64)
+    wn_hi = torch.as_tensor(wn.astype(np.float32), device=dev)
+    wn_lo = torch.as_tensor((wn - wn.astype(np.float32).astype(np.float64))
+                            .astype(np.float32), device=dev)
+    cm = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    cv = torch.ones((1, 1), dtype=torch.int32, device=dev)
+    g = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (state[0].shape[0], 64, 22)) * 1e22, dtype=dtype, device=dev)
+    bwd = lorentz_sum_bwd_plain if lorentz else line_sum_bwd_plain
+    d = lambda v: v.to(dtype)
+    return list(bwd(pre, cat["mol"], d(wn_hi), d(wn_lo), cm, cv, n, 64, 22,
+                    g))

@@ -284,6 +284,8 @@ def test_launch_offsets_rows_by_block(monkeypatch, direction, voigt):
     pre = {key: torch.rand((L, n), generator=gen) for key in lk.PER_LN}
     pre.update({key: torch.rand(n, generator=gen) for key in lk.PER_L})
     pre["flags"] = {key: torch.zeros(n) for key in lk.FLAGS}
+    pre["bits"] = lk.flag_bits(pre["flags"])
+    pre["mol0"] = torch.zeros(n, dtype=torch.int32)
     mol = torch.ones(n, dtype=torch.int32)
     wn = torch.zeros(wt)
     maps = (torch.zeros((1, 1), dtype=torch.int32),) * 2
@@ -361,6 +363,8 @@ def test_deferral_words_and_their_slot_limit(monkeypatch):
     pre = {key: torch.zeros((1, n)) for key in lk.PER_LN}
     pre.update({key: torch.zeros(n) for key in lk.PER_L})
     pre["flags"] = {key: torch.zeros(n) for key in lk.FLAGS}
+    pre["bits"] = lk.flag_bits(pre["flags"])
+    pre["mol0"] = torch.zeros(n, dtype=torch.int32)
     rev = torch.zeros((1, lk.MAX_REV_SLOTS), dtype=torch.int32)
     with pytest.raises(ValueError, match="deferral word"):
         VOIGT_KERNEL.launch_bwd(pre, torch.ones(n, dtype=torch.int32),
