@@ -12,6 +12,7 @@ context or threads.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -499,6 +500,16 @@ def _pool(workers: int):
         workers, mp_context=multiprocessing.get_context("spawn"))
 
 
+def layering_workers(n_blocks: int, workers: int | None = None,
+                     streaming: bool = True) -> int:
+    """The processes that layer n_blocks profiles: `workers` (None: the
+    `_auto_workers` heuristic), or 1, the caller's own, where a pool
+    would get fewer than two profiles a worker."""
+    if workers is None:
+        workers = _auto_workers(n_blocks, streaming)
+    return 1 if workers <= 1 or n_blocks < 2 * workers else workers
+
+
 def profiles_from_tape5(filein, cfg, workers: int | None = None
                         ) -> list[Profile]:
     """All '$'-stacked IATM=1 profiles of a MONORTM.IN file.
@@ -508,9 +519,8 @@ def profiles_from_tape5(filein, cfg, workers: int | None = None
     SURVEY.md section 7); profiles are independent, order is preserved.
     """
     args = _layering_args(filein)
-    if workers is None:
-        workers = _auto_workers(len(args), streaming=False)
-    if workers <= 1 or len(args) < 2 * workers:
+    workers = layering_workers(len(args), workers, streaming=False)
+    if workers == 1:
         return [_atmpth_block(a) for a in args]
 
     chunk = max(1, len(args) // (4 * workers))
@@ -518,28 +528,38 @@ def profiles_from_tape5(filein, cfg, workers: int | None = None
         return list(ex.map(_atmpth_block, args, chunksize=chunk))
 
 
-def profiles_from_tape5_iter(filein, cfg, workers: int | None = None):
+def profiles_from_tape5_iter(filein, cfg, workers: int | None = None,
+                             pool_stage=None):
     """Streaming variant of profiles_from_tape5: yields profiles in
     input order as the worker pool completes them, so the pipeline can
     start device work on early profiles while later ones are still
-    being layered (the producer/consumer overlap in pipeline.run)."""
+    being layered (the producer/consumer overlap in pipeline.run).
+
+    pool_stage: a callable returning a context manager that is held from
+    the pool's creation until its first profile is back (pipeline.run's
+    `layering.pool` stage); unused when no pool starts."""
     args = _layering_args(filein)
-    if workers is None:
-        workers = _auto_workers(len(args), streaming=True)
-    if workers <= 1 or len(args) < 2 * workers:
+    workers = layering_workers(len(args), workers)
+    if workers == 1:
         for a in args:
             yield _atmpth_block(a)
         return
     chunk = max(1, min(16, len(args) // (4 * workers)))
-    ex = _pool(workers)
+    ex = None
     try:
-        yield from ex.map(_atmpth_block, args, chunksize=chunk)
+        with (pool_stage or contextlib.nullcontext)():
+            ex = _pool(workers)
+            done = ex.map(_atmpth_block, args, chunksize=chunk)
+            first = next(done)
+        yield first
+        yield from done
         ex.shutdown(wait=True)
     finally:
         # abandoned mid-stream (consumer error): cancel the eagerly
         # submitted layering tasks instead of blocking the interpreter
         # exit on the full 10k-profile backlog
-        ex.shutdown(wait=False, cancel_futures=True)
+        if ex is not None:
+            ex.shutdown(wait=False, cancel_futures=True)
 
 
 def xamnts(rd: AtmRecordReader, prof: lay.ModelProfile,

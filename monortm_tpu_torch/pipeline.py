@@ -62,7 +62,8 @@ import torch.distributed as dist
 
 from monortm_tpu_torch import __version__
 from monortm_tpu_torch import constants as cst
-from monortm_tpu_torch.atmos.tape5_atm import (profiles_from_tape5,
+from monortm_tpu_torch.atmos.tape5_atm import (layering_workers,
+                                                profiles_from_tape5,
                                                 profiles_from_tape5_iter)
 from monortm_tpu_torch.convert import state_from_numpy
 from monortm_tpu_torch.data.loader import HMOLC
@@ -373,7 +374,10 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
     WN_TILE).  emis_dir: the directory of the EMISSION /
     REFLECTION files (default: the "in" directory beside MONORTM.IN).
     workers: host processes for IATM=1 layering
-    (atmos.tape5_atm.profiles_from_tape5_iter).  profile_dir: write a
+    (atmos.tape5_atm.profiles_from_tape5_iter; a streamed run with a
+    pool times its start as the stage `layering.pool`, inside
+    `profiles+layering`, and MONORTM.LOG's LAYERING line counts the
+    profiles, processes and chunks).  profile_dir: write a
     torch.profiler trace there.  mesh: "auto" (every rank of a
     torch.distributed run on a (prof, wn) mesh, `_auto_mesh`; one device
     otherwise), None (one device per process) or a
@@ -433,8 +437,11 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
         with timer.stage("profiles+layering"):
             profiles = read_profiles(fileprof, ixsect=ixsect)
     elif cfg.ixsect >= 1:
+        n_layering = layering_workers(nprof, workers, streaming=False)
         with timer.stage("profiles+layering"):
             profiles = profiles_from_tape5(filein, cfg, workers=workers)
+    else:
+        n_layering = layering_workers(nprof, workers)
 
     # the (prof, wn[, line]) mesh (every rank makes its process groups
     # here, in one order); only rank 0 writes files
@@ -637,7 +644,9 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
         if profiles is not None:
             src = iter(profiles)
         else:
-            src = profiles_from_tape5_iter(filein, cfg, workers=workers)
+            src = profiles_from_tape5_iter(
+                filein, cfg, workers=workers,
+                pool_stage=lambda: timer.stage("layering.pool"))
         npr0 = 0
         while True:
             if profiles is None:
@@ -878,6 +887,9 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
     for n, eng, lor in out.engines:
         log.write(f" ENGINE SPLIT: {n} profile(s): {eng}, {len(lor)} "
                   f"all-Lorentz layer(s)\n")
+    if iatm == 1:
+        log.write(f" LAYERING: {len(prepped)} profile(s) over {n_layering} "
+                  f"worker process(es), {len(out.engines)} chunk(s)\n")
     log.write(timer.report())
     log.close()
     return out
