@@ -4,7 +4,7 @@ Builds layered path states (density-weighted PBAR/TBAR, per-molecule column
 amounts, level values) from either the six built-in model atmospheres or a
 user-supplied profile, including refracted-ray geometry and automatic
 layering.  This stage is small, sequential and precision-sensitive, so it
-runs on the host; its output is the host layered state (`types.HostState`)
+runs on the host; its output is the host layered state (`host_types.HostState`)
 that the pipeline stacks and uploads to the device forward model.
 
 A copy of `monortm_tpu.atmos.layering`.  Where the JAX package calls its

@@ -5,21 +5,31 @@ objects via the path engine.  Replicates ATMPTH's record handling
 (lblatm.f90:575-1260) including pressure-grid boundary conversion and the
 user-profile (MODEL=0) reader NSMDL/RDUNIT (lblatm.f90:3044-3401).
 
-A copy of `monortm_tpu.atmos.tape5_atm`; its worker pools start processes
-with the `spawn` method, so that no worker inherits the parent's CUDA
-context or threads.
+A copy of `monortm_tpu.atmos.tape5_atm`, whose layering worker pools
+(`_Pool`) start their processes without torch: this module and what it
+imports are numpy, the native helper and the data tables, and the
+workers are forked from a `forkserver` that has preloaded this module
+alone, so that no worker inherits the parent's CUDA context or threads,
+nor imports the parent's `__main__` (see `_Popen`).  The server outlives
+a run: the first pool of a process pays its start, later pools fork.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import math
+import os
+import sys
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import (context, forkserver, popen_forkserver,
+                             reduction, spawn, util)
 
 import numpy as np
 
 from monortm_tpu_torch.atmos import layering as lay
 from monortm_tpu_torch.io.profin import Profile
-from monortm_tpu_torch.types import HostState, ProfileMeta
+from monortm_tpu_torch.host_types import HostState, ProfileMeta
 
 
 def _f(s: str) -> float:
@@ -463,6 +473,101 @@ def _atmpth_block(args):
     return atmpth(rest, v1, v2, ixsect=ixsect, fscdxs_dir=fdir)
 
 
+def _worker_report():
+    """(this process's id, whether it has imported torch)."""
+    return os.getpid(), "torch" in sys.modules
+
+
+def _pooled_block(args):
+    """A pool task: one block's Profile and its worker's report."""
+    return _atmpth_block(args), _worker_report()
+
+
+def _worker_start(reports, environ):
+    """A pool worker's initializer: take the environment the parent had
+    when it made the pool (a forked worker has the server's, of the
+    first pool), then report on the worker's start."""
+    os.environ.clear()
+    os.environ.update(environ)
+    reports.put(_worker_report())
+
+
+class _Popen(popen_forkserver.Popen):
+    """The forkserver's Popen, less the parent's `__main__`: a child told
+    of it runs the parent's main module again (as `__mp_main__`), and
+    with it that module's imports, torch among them (the CLI's console
+    script, a benchmark driver).  The pool's tasks name functions of this
+    module only, which the server has preloaded."""
+
+    def _launch(self, process_obj):
+        # popen_forkserver.Popen._launch (Python 3.12), with the keys that
+        # make the child import `__main__` taken out of its preparation data
+        prep = spawn.get_preparation_data(process_obj._name)
+        prep.pop("init_main_from_name", None)
+        prep.pop("init_main_from_path", None)
+        buf = io.BytesIO()
+        context.set_spawning_popen(self)
+        try:
+            reduction.dump(prep, buf)
+            reduction.dump(process_obj, buf)
+        finally:
+            context.set_spawning_popen(None)
+        self.sentinel, w = forkserver.connect_to_new_process(self._fds)
+        # a duplicate of the data pipe's write end: the child's sentinel
+        # of its parent
+        parent_w = os.dup(w)
+        self.finalizer = util.Finalize(self, util.close_fds,
+                                       (parent_w, self.sentinel))
+        with open(w, "wb", closefd=True) as f:
+            f.write(buf.getbuffer())
+        self.pid = forkserver.read_signed(self.sentinel)
+
+
+class _Process(context.ForkServerProcess):
+    @staticmethod
+    def _Popen(process_obj):
+        return _Popen(process_obj)
+
+
+class _Context(context.ForkServerContext):
+    Process = _Process
+
+
+class _Pool:
+    """A process pool for the layering whose workers start without torch
+    (the module's docstring), and which counts the workers that ran
+    without it.  Never `fork`: the parent may hold a CUDA context and
+    run threads."""
+
+    def __init__(self, workers: int):
+        ctx = _Context()
+        ctx.set_forkserver_preload([__name__])
+        self._starts = ctx.SimpleQueue()
+        self._reports = []
+        self._ex = ProcessPoolExecutor(
+            workers, mp_context=ctx, initializer=_worker_start,
+            initargs=(self._starts, dict(os.environ)))
+
+    def map(self, args, chunksize: int):
+        """The Profiles of the blocks `args`, in order."""
+        for prof, rep in self._ex.map(_pooled_block, args,
+                                      chunksize=chunksize):
+            self._reports.append(rep)
+            yield prof
+
+    def shutdown(self, wait: bool = True, cancel_futures: bool = False):
+        self._ex.shutdown(wait=wait, cancel_futures=cancel_futures)
+
+    def without_torch(self) -> int:
+        """The worker processes that had no torch at their start nor in
+        any of their tasks; read after shutdown(wait=True)."""
+        while not self._starts.empty():
+            self._reports.append(self._starts.get())
+        self._starts.close()
+        with_torch = {pid for pid, loaded in self._reports if loaded}
+        return len({pid for pid, _ in self._reports} - with_torch)
+
+
 def _layering_args(filein):
     """Read the '$'-stacked blocks and build per-profile layering args."""
     from pathlib import Path
@@ -490,16 +595,6 @@ def _auto_workers(n_blocks: int, streaming: bool) -> int:
     return 1 if (n_blocks < 256 or ncpu < 4) else min(ncpu, 16)
 
 
-def _pool(workers: int):
-    """A process pool whose workers start fresh (`spawn`): the caller may
-    hold a CUDA context and run threads, which a forked worker must not
-    inherit.  The workers do numpy layering only."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-    return ProcessPoolExecutor(
-        workers, mp_context=multiprocessing.get_context("spawn"))
-
-
 def layering_workers(n_blocks: int, workers: int | None = None,
                      streaming: bool = True) -> int:
     """The processes that layer n_blocks profiles: `workers` (None: the
@@ -510,13 +605,16 @@ def layering_workers(n_blocks: int, workers: int | None = None,
     return 1 if workers <= 1 or n_blocks < 2 * workers else workers
 
 
-def profiles_from_tape5(filein, cfg, workers: int | None = None
-                        ) -> list[Profile]:
+def profiles_from_tape5(filein, cfg, workers: int | None = None,
+                        report=None) -> list[Profile]:
     """All '$'-stacked IATM=1 profiles of a MONORTM.IN file.
 
     workers=None auto-parallelises the per-profile layering across CPU
     cores for large stacked runs (the 10k-radiosonde input-pipeline case,
     SURVEY.md section 7); profiles are independent, order is preserved.
+    report: a callable given, once a pool is done, the number of its
+    worker processes that ran without torch (`_Pool.without_torch`);
+    unused when no pool starts.
     """
     args = _layering_args(filein)
     workers = layering_workers(len(args), workers, streaming=False)
@@ -524,12 +622,18 @@ def profiles_from_tape5(filein, cfg, workers: int | None = None
         return [_atmpth_block(a) for a in args]
 
     chunk = max(1, len(args) // (4 * workers))
-    with _pool(workers) as ex:
-        return list(ex.map(_atmpth_block, args, chunksize=chunk))
+    pool = _Pool(workers)
+    try:
+        profiles = list(pool.map(args, chunk))
+    finally:
+        pool.shutdown()
+    if report is not None:
+        report(pool.without_torch())
+    return profiles
 
 
 def profiles_from_tape5_iter(filein, cfg, workers: int | None = None,
-                             pool_stage=None):
+                             pool_stage=None, report=None):
     """Streaming variant of profiles_from_tape5: yields profiles in
     input order as the worker pool completes them, so the pipeline can
     start device work on early profiles while later ones are still
@@ -537,7 +641,8 @@ def profiles_from_tape5_iter(filein, cfg, workers: int | None = None,
 
     pool_stage: a callable returning a context manager that is held from
     the pool's creation until its first profile is back (pipeline.run's
-    `layering.pool` stage); unused when no pool starts."""
+    `layering.pool` stage); report: as profiles_from_tape5's, called
+    after the last profile; both unused when no pool starts."""
     args = _layering_args(filein)
     workers = layering_workers(len(args), workers)
     if workers == 1:
@@ -545,21 +650,23 @@ def profiles_from_tape5_iter(filein, cfg, workers: int | None = None,
             yield _atmpth_block(a)
         return
     chunk = max(1, min(16, len(args) // (4 * workers)))
-    ex = None
+    pool = None
     try:
         with (pool_stage or contextlib.nullcontext)():
-            ex = _pool(workers)
-            done = ex.map(_atmpth_block, args, chunksize=chunk)
+            pool = _Pool(workers)
+            done = pool.map(args, chunk)
             first = next(done)
         yield first
         yield from done
-        ex.shutdown(wait=True)
+        pool.shutdown(wait=True)
+        if report is not None:
+            report(pool.without_torch())
     finally:
         # abandoned mid-stream (consumer error): cancel the eagerly
         # submitted layering tasks instead of blocking the interpreter
         # exit on the full 10k-profile backlog
-        if ex is not None:
-            ex.shutdown(wait=False, cancel_futures=True)
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)
 
 
 def xamnts(rd: AtmRecordReader, prof: lay.ModelProfile,

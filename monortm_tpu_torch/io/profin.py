@@ -6,7 +6,7 @@ record 925 profile header, per-layer records 974/9742 (IFORM=0) or
 column-density conversion (monortm.f90:414-483), and the IXSECT layer
 amounts block.
 
-A copy of `monortm_tpu.io.profin`; `Profile.state` is a `types.HostState`.
+A copy of `monortm_tpu.io.profin`; `Profile.state` is a `host_types.HostState`.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
-from monortm_tpu_torch.types import HostState, ProfileMeta
+from monortm_tpu_torch.host_types import HostState, ProfileMeta
 
 MXMOL = 39
 

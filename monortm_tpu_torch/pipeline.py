@@ -377,12 +377,12 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
     (atmos.tape5_atm.profiles_from_tape5_iter; a streamed run with a
     pool times its start as the stage `layering.pool`, inside
     `profiles+layering`, and MONORTM.LOG's LAYERING line counts the
-    profiles, processes and chunks).  profile_dir: write a
-    torch.profiler trace there.  mesh: "auto" (every rank of a
-    torch.distributed run on a (prof, wn) mesh, `_auto_mesh`; one device
-    otherwise), None (one device per process) or a
-    `parallel.sharding.Mesh` over the world's ranks; `device` is then this
-    rank's.
+    profiles, processes, chunks and the pool's workers that ran without
+    torch).  profile_dir: write a torch.profiler trace there.
+    mesh: "auto" (every rank of a torch.distributed run on a (prof, wn)
+    mesh, `_auto_mesh`; one device otherwise), None (one device per
+    process) or a `parallel.sharding.Mesh` over the world's ranks;
+    `device` is then this rank's.
     """
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be float32 or float64: {dtype}")
@@ -433,13 +433,15 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
     # while later ones are still being layered, except in an IXSECT run,
     # whose thread-pooled xsec pre-pass needs the full list
     profiles = None
+    torch_free = []     # the pool's count of workers without torch
     if iatm == 0:
         with timer.stage("profiles+layering"):
             profiles = read_profiles(fileprof, ixsect=ixsect)
     elif cfg.ixsect >= 1:
         n_layering = layering_workers(nprof, workers, streaming=False)
         with timer.stage("profiles+layering"):
-            profiles = profiles_from_tape5(filein, cfg, workers=workers)
+            profiles = profiles_from_tape5(filein, cfg, workers=workers,
+                                           report=torch_free.append)
     else:
         n_layering = layering_workers(nprof, workers)
 
@@ -646,7 +648,8 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
         else:
             src = profiles_from_tape5_iter(
                 filein, cfg, workers=workers,
-                pool_stage=lambda: timer.stage("layering.pool"))
+                pool_stage=lambda: timer.stage("layering.pool"),
+                report=torch_free.append)
         npr0 = 0
         while True:
             if profiles is None:
@@ -889,7 +892,8 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                   f"all-Lorentz layer(s)\n")
     if iatm == 1:
         log.write(f" LAYERING: {len(prepped)} profile(s) over {n_layering} "
-                  f"worker process(es), {len(out.engines)} chunk(s)\n")
+                  f"worker process(es), {len(out.engines)} chunk(s), "
+                  f"{sum(torch_free)} without torch\n")
     log.write(timer.report())
     log.close()
     return out

@@ -12,7 +12,12 @@
   that take a gradient on a mesh never import either;
 - the CLI on its default device fails where there is no GPU;
 - `chip_smoke.py` fails, and prints no result, where there is no GPU;
-- importing the kernel module needs neither nvcc nor triton.
+- importing the kernel module needs neither nvcc nor triton;
+- the IATM=1 layering pool's workers never import torch, though their
+  parent has it and the CLI's module loaded, whether the parent's
+  `__main__` is `-c` or a script that imports torch (the console
+  script's case): the pool's count of workers without torch is its
+  worker count.
 """
 
 import json
@@ -22,6 +27,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -124,8 +131,8 @@ print(sorted(k for k in sys.modules
 """
 
 PIPELINE_MODULES = (
-    "pipeline.py", "cli.py", "envelope.py", "types.py", "lines.py",
-    "testing.py",
+    "pipeline.py", "cli.py", "envelope.py", "types.py", "host_types.py",
+    "lines.py", "testing.py",
     "io/tape3.py", "io/tape5.py", "io/profin.py", "io/emis.py",
     "io/cldod.py", "io/tape7.py", "io/fscdxs.py", "io/output.py",
     "atmos/layering.py", "atmos/tape5_atm.py", "utils/trace.py",
@@ -229,3 +236,38 @@ def test_cli_default_device_fails_without_a_gpu(tmp_path):
     assert res.returncode != 0
     assert "CUDA" in res.stderr
     assert not (tmp_path / "out" / "MONORTM.OUT").exists()
+
+
+# a parent with torch and the CLI's module loaded: the layering of a
+# stacked IATM=1 file through a 2-worker pool, then the profiles, the
+# pool's count of workers without torch and whether the parent has torch
+POOL_PARENT = """
+import sys
+import torch
+import monortm_tpu_torch.cli
+from monortm_tpu_torch.atmos.tape5_atm import profiles_from_tape5
+if __name__ == "__main__":
+    n = []
+    profs = profiles_from_tape5(sys.argv[1], None, workers=2,
+                                report=n.append)
+    print(len(profs), n, "torch" in sys.modules)
+"""
+
+
+@pytest.mark.parametrize("parent", ["-c", "script"])
+def test_layering_workers_start_without_torch(parent, tmp_path):
+    from tests.test_torch_io import stacked_iatm1_tape5
+    tape5 = tmp_path / "MONORTM.IN"
+    tape5.write_text(stacked_iatm1_tape5(8))
+    if parent == "script":
+        script = tmp_path / "parent.py"
+        script.write_text(POOL_PARENT)
+        args = [str(script)]
+    else:
+        args = ["-c", POOL_PARENT]
+    path = os.pathsep.join(filter(None, [str(ROOT),
+                                         os.environ.get("PYTHONPATH")]))
+    res = _run([*args, str(tape5)],
+               env=_env(OMP_NUM_THREADS="1", PYTHONPATH=path))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "8 [2] True", res.stdout

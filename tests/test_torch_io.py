@@ -97,6 +97,17 @@ def iatm1_tape5(v1=0.2, v2=1.2, dvset=0.1, rest=CASE1_REST, icntnm=1,
          rec13(v1, v2, dvset), REC14, *rest, "%%%%"]) + "\n"
 
 
+def stacked_iatm1_tape5(n, rest=CASE1_REST, **kw) -> str:
+    """n '$'-stacked IATM=1 blocks (iatm1_tape5's, `kw` passed on), block
+    k looking up from the ground to 20 + k km, so that their layer counts
+    differ."""
+    blocks = []
+    for k in range(n):
+        r = [rest[0], f"{0.0:10.3f}{20.0 + k:10.3f}{0.0:10.3f}", *rest[2:]]
+        blocks += iatm1_tape5(rest=r, **kw).splitlines()[1:-1]
+    return "\n".join(["* stacked IATM=1 case", *blocks, "%%%%"]) + "\n"
+
+
 def _tape5_cases():
     from monortm_tpu_torch.testing import _MIN_TAPE5
     icntnm6 = "\n".join(

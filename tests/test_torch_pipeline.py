@@ -342,7 +342,7 @@ def test_cloud_file_od(tmp_path):
 
 
 def test_stacked_iatm1_worker_pool(tmp_path):
-    """Four '$' blocks layered by two spawned worker processes (streamed
+    """Four '$' blocks layered by two pooled worker processes (streamed
     into the producer) write what one process writes."""
     text = iatm1_tape5(v1=0.5, v2=1.0, dvset=0.25)
     block = text[text.index("$"):text.index("%")]

@@ -12,9 +12,14 @@ layout) through the port on the CPU.
   processes, chunks) and times the pool's start as `layering.pool`
   inside `profiles+layering`; a serial one logs the line without the
   stage; an IATM=0 run's STAGE TIMING keeps its names and has no
-  LAYERING line.
+  LAYERING line.  The line's last field counts the pool's workers that
+  ran without torch: all of them with a pool, 0 without one.
+- A 2-worker pool's profiles (IATM=1 with IXSECT=1, so with
+  cross-section amounts), from the list and the streaming variant, are
+  bitwise those of the caller's own layering (workers=1).
 """
 
+import dataclasses
 import json
 import re
 
@@ -27,10 +32,11 @@ from benchmark.reference import inputs as I
 from benchmark.reference import layering as LA
 from benchmark.reference.model import Reference
 from benchmark.run import ROOT
-from monortm_tpu_torch.atmos.tape5_atm import atmpth
+from monortm_tpu_torch.atmos.tape5_atm import (atmpth, profiles_from_tape5,
+                                                profiles_from_tape5_iter)
 from monortm_tpu_torch.io.tape5 import Tape5Reader
 from monortm_tpu_torch.pipeline import run
-from monortm_tpu_torch.testing import make_minimal_rundir
+from monortm_tpu_torch.testing import make_minimal_rundir, write_xsec_data
 
 CFG = json.loads((ROOT / "benchmark" / "configs" / "mw_sonde.json")
                  .read_text())
@@ -120,7 +126,8 @@ def test_layering_line_and_pool_stage(workers, tmp_path):
     chunks = len({len(s["zbnd"]) for s in pool["sondes"][0]})
     assert chunks >= 2 and len(res.engines) == chunks
     assert f" LAYERING: 5 profile(s) over {workers} worker process(es), " \
-           f"{chunks} chunk(s)\n" in log
+           f"{chunks} chunk(s), {workers if workers > 1 else 0} without " \
+           f"torch\n" in log
     stages = _stages(log)
     assert stages["profiles+layering"] == 6     # 5 profiles and the end
     assert stages.get("layering.pool") == (1 if workers > 1 else None)
@@ -133,3 +140,46 @@ def test_iatm0_stage_names_are_kept(tmp_path):
     log = (tmp_path / "out" / "MONORTM.LOG").read_text()
     assert set(_stages(log)) == IATM0_STAGES
     assert "LAYERING" not in log
+
+
+def _bits(x):
+    a = np.asarray(x)
+    return a.dtype, a.shape, a.tobytes()
+
+
+@pytest.mark.parametrize("variant", ["list", "stream"])
+def test_pooled_layering_is_bitwise_serial(variant, tmp_path):
+    """8 blocks with record 3.7 (CCL4's standard profile) over 795-805
+    cm^-1: the pool's profiles, field by field, are the serial ones."""
+    from tests.test_torch_io import CASE1_REST, stacked_iatm1_tape5
+    write_xsec_data(tmp_path, ("CCL4",))
+    tape5 = tmp_path / "MONORTM.IN"
+    tape5.write_text(stacked_iatm1_tape5(
+        8, rest=CASE1_REST[:3] + ["    1    1    0", "CCL4      "],
+        v1=795.0, v2=805.0, dvset=2.0, ixsect=1))
+
+    def layer(workers, report=None):
+        if variant == "list":
+            return profiles_from_tape5(tape5, None, workers=workers,
+                                       report=report)
+        return list(profiles_from_tape5_iter(tape5, None, workers=workers,
+                                             report=report))
+
+    counts = []
+    pooled, serial = layer(2, counts.append), layer(1)
+    assert counts == [2] and len(pooled) == len(serial) == 8
+    assert len({len(p.state.p) for p in serial}) >= 2
+    for a, b in zip(pooled, serial):
+        for f in dataclasses.fields(a.state):
+            assert _bits(getattr(a.state, f.name)) == \
+                _bits(getattr(b.state, f.name)), f.name
+        for f in dataclasses.fields(a.meta):
+            x, y = getattr(a.meta, f.name), getattr(b.meta, f.name)
+            if isinstance(y, np.ndarray):
+                assert _bits(x) == _bits(y), f.name
+            else:
+                assert x == y, f.name
+        assert b.xamnt is not None and b.xamnt.any()
+        assert _bits(a.xamnt) == _bits(b.xamnt)
+        for f in ("secnt0", "hmod", "xsname", "ityl", "path", "ipunch"):
+            assert getattr(a, f) == getattr(b, f), f
