@@ -568,8 +568,31 @@ class _Pool:
         return len({pid for pid, _ in self._reports} - with_torch)
 
 
-def _layering_args(filein):
-    """Read the '$'-stacked blocks and build per-profile layering args."""
+def layering_workers(n_blocks: int, workers: int | None = None) -> int:
+    """The processes that layer n_blocks profiles: `workers`, by default
+    a pool from 64 blocks on 2 or more cores, of at most 16 (the pool's
+    start hides behind the pipeline's own prep of the first profiles;
+    measured a win at 2 cores / 500 profiles), or 1, the caller's own,
+    where a pool would get fewer than two profiles a worker."""
+    if workers is None:
+        ncpu = len(os.sched_getaffinity(0)) \
+            if hasattr(os, "sched_getaffinity") else (os.cpu_count() or 1)
+        workers = 1 if (n_blocks < 64 or ncpu < 2) else min(ncpu, 16)
+    return 1 if workers <= 1 or n_blocks < 2 * workers else workers
+
+
+def profiles_from_tape5_iter(filein, cfg, workers: int | None = None,
+                             pool_stage=None, report=None):
+    """The '$'-stacked IATM=1 profiles of a MONORTM.IN file, in input
+    order as they are layered (by the caller, or for large stacked runs
+    by a pool of `layering_workers` processes), so that the pipeline
+    starts device work on early profiles while later ones are layered.
+
+    pool_stage: a callable returning a context manager that is held from
+    the pool's creation until its first profile is back (pipeline.run's
+    `layering.pool` stage); report: a callable given, after the last
+    profile, the number of the pool's worker processes that ran without
+    torch (`_Pool.without_torch`); both unused when no pool starts."""
     from pathlib import Path
     from monortm_tpu_torch.io.tape5 import Tape5Reader
     rd = Tape5Reader(filein)
@@ -577,73 +600,7 @@ def _layering_args(filein):
     while not rd.at_end():
         blocks.append(rd.read_block())
     fdir = Path(filein).parent
-    return [(blk.rest, blk.v1, blk.v2, blk.ixsect, fdir)
-            for blk in blocks]
-
-
-def _auto_workers(n_blocks: int, streaming: bool) -> int:
-    """Layering fan-out heuristic.  The blocking variant pools only when
-    there are enough cores/profiles for the fork+pickle overhead to pay
-    off inside the stage itself; the streaming variant pools earlier
-    because the pool's latency hides behind the producer's own prep work
-    (pipeline.run overlap) — measured a win at 2 cores / 500 profiles."""
-    import os
-    ncpu = len(os.sched_getaffinity(0)) \
-        if hasattr(os, "sched_getaffinity") else (os.cpu_count() or 1)
-    if streaming:
-        return 1 if (n_blocks < 64 or ncpu < 2) else min(ncpu, 16)
-    return 1 if (n_blocks < 256 or ncpu < 4) else min(ncpu, 16)
-
-
-def layering_workers(n_blocks: int, workers: int | None = None,
-                     streaming: bool = True) -> int:
-    """The processes that layer n_blocks profiles: `workers` (None: the
-    `_auto_workers` heuristic), or 1, the caller's own, where a pool
-    would get fewer than two profiles a worker."""
-    if workers is None:
-        workers = _auto_workers(n_blocks, streaming)
-    return 1 if workers <= 1 or n_blocks < 2 * workers else workers
-
-
-def profiles_from_tape5(filein, cfg, workers: int | None = None,
-                        report=None) -> list[Profile]:
-    """All '$'-stacked IATM=1 profiles of a MONORTM.IN file.
-
-    workers=None auto-parallelises the per-profile layering across CPU
-    cores for large stacked runs (the 10k-radiosonde input-pipeline case,
-    SURVEY.md section 7); profiles are independent, order is preserved.
-    report: a callable given, once a pool is done, the number of its
-    worker processes that ran without torch (`_Pool.without_torch`);
-    unused when no pool starts.
-    """
-    args = _layering_args(filein)
-    workers = layering_workers(len(args), workers, streaming=False)
-    if workers == 1:
-        return [_atmpth_block(a) for a in args]
-
-    chunk = max(1, len(args) // (4 * workers))
-    pool = _Pool(workers)
-    try:
-        profiles = list(pool.map(args, chunk))
-    finally:
-        pool.shutdown()
-    if report is not None:
-        report(pool.without_torch())
-    return profiles
-
-
-def profiles_from_tape5_iter(filein, cfg, workers: int | None = None,
-                             pool_stage=None, report=None):
-    """Streaming variant of profiles_from_tape5: yields profiles in
-    input order as the worker pool completes them, so the pipeline can
-    start device work on early profiles while later ones are still
-    being layered (the producer/consumer overlap in pipeline.run).
-
-    pool_stage: a callable returning a context manager that is held from
-    the pool's creation until its first profile is back (pipeline.run's
-    `layering.pool` stage); report: as profiles_from_tape5's, called
-    after the last profile; both unused when no pool starts."""
-    args = _layering_args(filein)
+    args = [(blk.rest, blk.v1, blk.v2, blk.ixsect, fdir) for blk in blocks]
     workers = layering_workers(len(args), workers)
     if workers == 1:
         for a in args:

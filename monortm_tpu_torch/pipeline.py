@@ -20,17 +20,17 @@ the writer.  The device half, per chunk of profiles stacked into one
 - the RT layer recurrences (`rt_parts`); the O(W) boundary combine and
   Planck inversions then run in host numpy (`combine_boundary_np`).
 
-A producer thread parses, layers and preps profiles (numpy only) while
-the consumer thread, which makes every CUDA call, runs the device work;
-the device work of chunk N+1 is enqueued before chunk N is pulled.
-Nothing moves to the CPU behind the caller's back: a run on "cuda"
-without a card raises, and a kernel that fails to build or launch fails
-the run.
-
-Cross-sections (IXSECT >= 1) are host numpy, as in the JAX package: the
-`xsec-prep` stage computes every profile's cross-section OD up front
-(`ops.xsec.xsec_od`, a thread pool over profiles), and the device adds it
-to the total.
+`run` drives three stages that own their state: the producer
+(`_Producer`, numpy only, on its own thread) preps the profiles as they
+are read or layered and stacks same-shape chunks; the device stage
+(`_DeviceStage`, on the caller's thread, which makes every CUDA call)
+enqueues chunk N+1 before it pulls chunk N; the writer (`_write_outputs`)
+writes the files in input order once the producer's thread has ended.
+`_in_background` hands the chunks over through a queue of two.
+Cross-sections (IXSECT >= 1) are host numpy, as in the JAX package,
+computed for every profile up front (`_xsec_prepass`).  Nothing moves
+to the CPU behind the caller's back: a run on "cuda" without a card
+raises, and a kernel that fails to build or launch fails the run.
 
 Meshes (`mesh=`, the JAX package's, pipeline.py:345-356): in a
 torch.distributed run (`parallel.distributed`) every rank runs this
@@ -48,7 +48,10 @@ wherever the chunks take the same engine split.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import functools
+import itertools
 import os
 import queue
 import threading
@@ -63,7 +66,6 @@ import torch.distributed as dist
 from monortm_tpu_torch import __version__
 from monortm_tpu_torch import constants as cst
 from monortm_tpu_torch.atmos.tape5_atm import (layering_workers,
-                                                profiles_from_tape5,
                                                 profiles_from_tape5_iter)
 from monortm_tpu_torch.convert import state_from_numpy
 from monortm_tpu_torch.data.loader import HMOLC
@@ -149,11 +151,6 @@ _HMOLC8 = (
     "   NO+  ", "  HOBr  ", " C2H4   ", " CH3OH  ")
 
 
-def _fort_hmolid(m: int) -> str:
-    """HMOLC(m) through an A10 edit (2 leading blanks)."""
-    return "  " + _HMOLC8[m]
-
-
 def _log_layer_table(log, p, t, wkl, wbrodl, nmol):
     """Per-layer column-amount + mixing-ratio tables into MONORTM.LOG,
     byte-matching the reference's IFORM=1 format statements
@@ -194,12 +191,12 @@ def _log_layer_table(log, p, t, wkl, wbrodl, nmol):
     for mlo in [0] + list(range(7, nmol, 8)):
         mhi = min(mlo + 8, nmol)
         if mlo == 0:
-            names = [_fort_hmolid(m)[2:] for m in range(7)] + [holn2]
+            names = [_HMOLC8[m] for m in range(7)] + [holn2]
             cols = lambda k: list(wkl[k, :7]) + [wbrodl[k]]
             tot = list(wmt[:7]) + [float(wbrodl.sum())]
         else:
             log.write("\n" * 5)          # format 970 (////)
-            names = [_fort_hmolid(m)[2:] for m in range(mlo, mhi)]
+            names = [_HMOLC8[m] for m in range(mlo, mhi)]
             cols = lambda k: list(wkl[k, mlo:mhi])
             tot = list(wmt[mlo:mhi])
         hdr974(names)
@@ -223,12 +220,12 @@ def _log_layer_table(log, p, t, wkl, wbrodl, nmol):
     for mlo in [0] + list(range(7, nmol, 8)):
         mhi = min(mlo + 8, nmol)
         if mlo == 0:
-            names = [_fort_hmolid(m)[2:] for m in range(7)] + [holn2]
+            names = [_HMOLC8[m] for m in range(7)] + [holn2]
             cols = lambda k: list(wkl[k, :7] / wdrair[k]) + [wbrodl[k]]
         else:
             if nlay < 5:
                 log.write("\n" * 5)      # format 970
-            names = [_fort_hmolid(m)[2:] for m in range(mlo, mhi)]
+            names = [_HMOLC8[m] for m in range(mlo, mhi)]
             cols = lambda k: list(wkl[k, mlo:mhi] / wdrair[k])
         hdr976(names)
         for k in range(nlay):
@@ -350,125 +347,27 @@ ENGINE_ALIASES = {"xla": "dense", "pallas": "full"}
 ENGINES = ("auto", "dense", "full", "hybrid", *ENGINE_ALIASES)
 
 
-def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
-        fileout="MONORTM.OUT", outdir=".", *, device="cuda",
-        dtype: torch.dtype = torch.float32, engine: str = "auto",
-        wn_tile: int = DENSE_WN_TILE, line_tile: int = DENSE_LINE_TILE,
-        emis_dir=None, netcdf: bool = False, profile_dir=None,
-        workers=None, mesh="auto") -> RunResult:
-    """Run the full MONORTM.IN -> MONORTM.OUT pipeline on one device or,
-    in a torch.distributed run, on a mesh of ranks.
+@dataclasses.dataclass(frozen=True)
+class _Setup:
+    """What every stage of one run reads and none changes."""
+    cfg: Any              # the first block's Tape5Config
+    wn: np.ndarray
+    device: torch.device
+    dtype: torch.dtype
+    npdt: type            # the host arrays' dtype
+    engine: str           # the port's name: dense, full or hybrid
+    wn_tile: int          # the dense engine's block
+    line_tile: int
+    mesh: Mesh | None
+    timer: StageTimer
+    outdir: Path
+    netcdf: bool
+    is_main: bool         # rank 0 (or no torch.distributed run) writes
 
-    device: "cuda" (the default; raises without a card) or "cpu", where
-    the line sums take their plain PyTorch versions.  dtype: float32 or
-    float64.  engine: "auto" (float32: both line-sum kernels through the
-    per-chunk engine split; float64: "dense"), "dense" or its JAX name
-    "xla" (the dense engine), "full" or its JAX name "pallas" (the
-    VOIGT=true kernel alone) or "hybrid" (the kernels through the split);
-    an alias runs, logs and reports as the port's name.  The kernels are
-    float32, so "full"/"pallas" and "hybrid" at float64 raise, where the
-    JAX package quietly takes its dense engine instead: that fallback
-    would hide the kernel the caller named.  wn_tile / line_tile (the
-    JAX package's, with its defaults): the dense engine's block of
-    wavenumbers and lines; the kernels keep their own plan (LINE_TILE,
-    WN_TILE).  emis_dir: the directory of the EMISSION /
-    REFLECTION files (default: the "in" directory beside MONORTM.IN).
-    workers: host processes for IATM=1 layering
-    (atmos.tape5_atm.profiles_from_tape5_iter; a streamed run with a
-    pool times its start as the stage `layering.pool`, inside
-    `profiles+layering`, and MONORTM.LOG's LAYERING line counts the
-    profiles, processes, chunks and the pool's workers that ran without
-    torch).  profile_dir: write a torch.profiler trace there.
-    mesh: "auto" (every rank of a torch.distributed run on a (prof, wn)
-    mesh, `_auto_mesh`; one device otherwise), None (one device per
-    process) or a `parallel.sharding.Mesh` over the world's ranks;
-    `device` is then this rank's.
-    """
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"dtype must be float32 or float64: {dtype}")
-    if engine not in ENGINES:
-        raise ValueError(f"engine must be one of {ENGINES}: {engine!r}")
-    if min(wn_tile, line_tile) < 1:
-        raise ValueError(f"wn_tile and line_tile must be positive: "
-                         f"{wn_tile}, {line_tile}")
-    asked, engine = engine, ENGINE_ALIASES.get(engine, engine)
-    if engine == "auto":
-        engine = "hybrid" if dtype == torch.float32 else "dense"
-    if engine != "dense" and dtype != torch.float32:
-        raise ValueError(f"engine {asked!r} runs the float32 line-sum "
-                         f"kernels; a {dtype} run takes engine='dense'")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run(device='cuda') needs a CUDA device; pass "
-                           "device='cpu' to run on the CPU")
-    filein = Path(filein)
-    Path(outdir).mkdir(parents=True, exist_ok=True)
-    timer = StageTimer()
-    with timer.stage("tape5-parse"):
-        iatm, ixsect, nprof = count_profiles(filein, fileprof)
-        rd = Tape5Reader(filein)
-        cfg = rd.read_block()
-    wn = cfg.wn
-    if cfg.nwn == 0:
-        raise ValueError("no wavenumbers configured")
 
-    # packed to the kernel plan's line tile whatever line_tile is (the JAX
-    # package packs to min(line_tile, 4096), monortm_tpu/pipeline.py:315):
-    # both engines' tiles drop the padding lines (valid=0), so the pack
-    # tile changes no value
-    with timer.stage("line-catalog"):
-        catalog = load_catalog(hfile, float(wn[0]), float(wn[-1]),
-                               tile=LINE_TILE)
-
-    # boundary spectra (EMISS_REFLEC, monortm_sub.F90:506-516)
-    ed = Path(emis_dir) if emis_dir else filein.parent / "in"
-    emis = emis_io.boundary_spectrum(
-        wn, cfg.bndemi, ed / "EMISSION" if cfg.bndemi[0] < 0 else None)
-    refl = emis_io.boundary_spectrum(
-        wn, cfg.bndrfl, ed / "REFLECTION" if cfg.bndrfl[0] < 0 else None)
-
-    # profiles: IATM=0 parses the layer file (fast); IATM=1 streams the
-    # LBLATM-equivalent layering out of the producer (a worker pool when
-    # there are many profiles) so the device starts on early profiles
-    # while later ones are still being layered, except in an IXSECT run,
-    # whose thread-pooled xsec pre-pass needs the full list
-    profiles = None
-    torch_free = []     # the pool's count of workers without torch
-    if iatm == 0:
-        with timer.stage("profiles+layering"):
-            profiles = read_profiles(fileprof, ixsect=ixsect)
-    elif cfg.ixsect >= 1:
-        n_layering = layering_workers(nprof, workers, streaming=False)
-        with timer.stage("profiles+layering"):
-            profiles = profiles_from_tape5(filein, cfg, workers=workers,
-                                           report=torch_free.append)
-    else:
-        n_layering = layering_workers(nprof, workers)
-
-    # the (prof, wn[, line]) mesh (every rank makes its process groups
-    # here, in one order); only rank 0 writes files
-    if isinstance(mesh, str):
-        if mesh != "auto":
-            raise ValueError(f"mesh must be 'auto', None or a Mesh: {mesh!r}")
-        mesh = _auto_mesh(len(profiles) if profiles is not None
-                          else nprof)
-    if mesh is not None and mesh.size() == 1:
-        mesh = None
-    n_prof_shards = mesh.shape["prof"] if mesh is not None else 1
-    is_main = not dist.is_initialized() or dist.get_rank() == 0
-
-    # TAPE7 (IPUNCH=1 on record 3.1, lblatm.f90:1264-1340): the layering
-    # output in MONORTM_PROF.IN-compatible form, collected by the
-    # producer and written before the last device work
-    punched: list = []
-
-    model_cache: dict[int, MonoRTM] = {}
-    out = RunResult(wn=wn, tb=[], rad=[], results=[])
-    writer = OutputWriter(Path(outdir) / fileout if is_main else os.devnull)
-
-    # MONORTM.LOG (unit IPR=66 in the reference, monortm.f90:322-325):
-    # control-record echo, line-file stats, per-profile notes
-    log = open(Path(outdir) / "MONORTM.LOG" if is_main else os.devnull, "w")
+def _log_header(log, cfg, catalog):
+    """MONORTM.LOG's head (unit IPR=66, monortm.f90:322-325): the control
+    records, input warnings (printed too), continuum factors, lines."""
     log.write(" HIRAC    CNTNM    EMISS     PLOT     IATM      IOD"
               "    XSECT     ISPD     IBRD\n")
     log.write(f"{cfg.ihirac:5d}{cfg.icntnm:9d}{cfg.iemit:9d}"
@@ -496,52 +395,141 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
         log.write(f"    {HMOLC[m-1]:>6s} = {mol_counts[m]:6d}\n")
     log.write(f"0 TOTAL NUMBER OF LINES ={catalog.n_lines:8d}\n")
 
-    # ---- host prep per profile (scaling, columns, xsec OD) ----------
-    cld_file = filein.parent / "in_lblrtm_cld"
 
-    # cross-section OD prep is the one per-profile host stage with real
-    # compute (file reads + pressure convolutions); fan it out across a
-    # thread pool up front — the index/spectra caches are shared
-    # (monortm.f90:492-532 runs this serially per profile)
-    xsec_results: dict[int, Any] = {}
-    xs_profiles = ([i for i, prof in enumerate(profiles)
-                    if prof.xamnt is not None]
-                   if profiles is not None and cfg.ixsect >= 1 else [])
-    if xs_profiles:
-        fdir = filein.parent
-        idx_cache: dict[tuple, Any] = {}
-        spectra: dict[str, Any] = {}
+def _log_tail(s: _Setup, log, hfile, stage: "_DeviceStage",
+              producer: "_Producer", n_workers: int | None):
+    """MONORTM.LOG's tail: the version stamp (monortm.f90:591-619, format
+    1000, the port's modules in the A15 fields), HOST PULL, MESH, ENGINE
+    SPLIT, LAYERING (IATM=1, over `n_workers` processes), STAGE TIMING."""
+    try:
+        hvrspec = read_tape3_header(hfile)[:15]
+    except (OSError, EOFError):
+        hvrspec = "(no TAPE3 hdr)"
+    _v = __version__
+    a15 = lambda x: f"{x[:15]:<15s}"
+    log.write("\n--------------------------------------\n")
+    log.write("Modules and versions used in this calculation:\n\n")
+    log.write(a15("Release  5.6") + "\n\n")
+    log.write(f"     spectral file :     {a15(hvrspec)}\n")
+    log.write(f"     monortm.f     :     {a15('pipeline ' + _v)}          "
+              f"modm.f           :      {a15('models.od ' + _v)}\n")
+    log.write(f"     monortm_sub.f :     {a15('io.output ' + _v)}          "
+              f"lblatm_monortm.f :      {a15('atmos ' + _v)}\n")
+    log.write(f"     package       :     monortm_tpu_torch {_v} (torch "
+              f"{torch.__version__}, {s.device})\n")
+    log.write(f" HOST PULL: {stage.pulled} bytes device->host "
+              f"(per-layer arrays pulled: {s.cfg.iod == 1 or s.netcdf})\n")
+    if s.mesh is not None:
+        shape = " x ".join(f"{k} {v}" for k, v in s.mesh.shape.items())
+        log.write(f" MESH: {shape} over {s.mesh.size()} ranks, backend "
+                  f"{dist.get_backend()}\n")
+    for n, eng, lor in stage.engines:
+        log.write(f" ENGINE SPLIT: {n} profile(s): {eng}, {len(lor)} "
+                  f"all-Lorentz layer(s)\n")
+    if n_workers is not None:
+        log.write(f" LAYERING: {len(producer.prepped)} profile(s) over "
+                  f"{n_workers} worker process(es), "
+                  f"{len(stage.engines)} chunk(s), "
+                  f"{sum(producer.without_torch)} without torch\n")
+    log.write(s.timer.report())
 
-        def _prep_xsec(i):
-            prof = profiles[i]
-            key = tuple(prof.xsname)
-            if key not in idx_cache:
-                idx_cache[key] = read_fscdxs(fdir / "FSCDXS", prof.xsname,
-                                             float(wn.min()),
-                                             float(wn.max()))
-            idx = idx_cache[key]
-            for regs in idx.regions.values():
-                for reg in regs:
-                    for f in reg.files:
-                        if f not in spectra:
-                            spectra[f] = read_xs_file(fdir / "xs" / f)
-            st = prof.state
-            return i, xsec_od(idx, spectra, wn, st.p, st.t, prof.xamnt)
 
-        with timer.stage("xsec-prep"):
-            # warm the caches serially on the first profile, then fan out
-            xsec_results.update([_prep_xsec(xs_profiles[0])])
-            rest = xs_profiles[1:]
-            if rest:
-                with ThreadPoolExecutor(min(8, len(rest))) as ex:
-                    xsec_results.update(ex.map(_prep_xsec, rest))
+def _xsec_prepass(profiles, wn, fdir: Path, timer) -> dict:
+    """{profile index: cross-section OD} (`ops.xsec.xsec_od`), the one
+    per-profile host stage with real compute, up front as the stage
+    `xsec-prep`: the first profile fills the shared FSCDXS index and
+    spectra caches, a pool of up to 8 threads does the rest
+    (monortm.f90:492-532 runs it serially per profile)."""
+    todo = [i for i, prof in enumerate(profiles) if prof.xamnt is not None]
+    if not todo:
+        return {}
+    idx_cache: dict[tuple, Any] = {}
+    spectra: dict[str, Any] = {}
 
-    prepped: list = []
+    def prep(i):
+        prof = profiles[i]
+        key = tuple(prof.xsname)
+        if key not in idx_cache:
+            idx_cache[key] = read_fscdxs(fdir / "FSCDXS", prof.xsname,
+                                         float(wn.min()), float(wn.max()))
+        idx = idx_cache[key]
+        for regs in idx.regions.values():
+            for reg in regs:
+                for f in reg.files:
+                    if f not in spectra:
+                        spectra[f] = read_xs_file(fdir / "xs" / f)
+        st = prof.state
+        return i, xsec_od(idx, spectra, wn, st.p, st.t, prof.xamnt)
 
-    def prep_profile(npr0, prof):
-        """Per-profile host prep (LOG tables, scaling, columns, xsec
-        OD) — the reference's per-profile preamble (monortm.f90:369-551).
-        Called by the producer in input order."""
+    with timer.stage("xsec-prep"):
+        done = dict([prep(todo[0])])
+        if todo[1:]:
+            with ThreadPoolExecutor(min(8, len(todo) - 1)) as ex:
+                done.update(ex.map(prep, todo[1:]))
+    return done
+
+
+class _Producer:
+    """The host stages of a run, numpy only, on the producer thread.  It
+    writes MONORTM.LOG's per-profile tables and TAPE7, and owns what it
+    makes, read by others once its thread has ended: `prepped` (each
+    profile's prep, in input order), `punched` (the IPUNCH=1 profiles)
+    and `without_torch` (where the layering stream reports its pool)."""
+
+    def __init__(self, s: _Setup, profiles, without_torch: list, xsec: dict,
+                 log, cld_file: Path, budget: float, n_lines: int):
+        # profiles: a list, or the IATM=1 layering's stream
+        self.s, self.profiles, self.without_torch = s, profiles, without_torch
+        self.xsec, self.log, self.cld_file = xsec, log, cld_file
+        self.budget, self.n_lines = budget, n_lines
+        self.shards = s.mesh.shape["prof"] if s.mesh is not None else 1
+        self.prepped: list[dict] = []
+        self.punched: list = []
+
+    def chunks(self):
+        """Profiles -> per-profile prep -> the work items of same-shape
+        chunks (one [B, nlay] forward each; the reference runs profile by
+        profile, monortm.f90:357), full ones as they fill, then the rest."""
+        s = self.s
+        buffers: dict[tuple, list[int]] = {}
+        caps: dict[tuple, int] = {}
+        src = iter(self.profiles)
+        streamed = not isinstance(self.profiles, list)
+        for npr0 in itertools.count(1):
+            with (s.timer.stage("profiles+layering") if streamed
+                  else contextlib.nullcontext()):
+                prof = next(src, None)
+            if prof is None:
+                break
+            with s.timer.stage("host-prep"):
+                pr = self.prep_profile(npr0, prof)
+            self.prepped.append(pr)
+            if getattr(prof, "ipunch", 0) == 1:
+                self.punched.append(prof)
+            key = (pr["st"].t.shape[-1], pr["irt"], pr["meta"].nmol,
+                   pr["od_xsec"] is not None)
+            buffers.setdefault(key, []).append(npr0 - 1)
+            if key not in caps:
+                caps[key] = _max_batch(
+                    len(s.wn), key[0], key[2], self.n_lines, self.budget,
+                    itemsize=np.dtype(s.npdt).itemsize,
+                    dense=s.engine == "dense",
+                    n_prof_shards=self.shards,
+                    wn_tile=s.wn_tile, line_tile=s.line_tile)
+            if len(buffers[key]) >= caps[key]:
+                yield self.stack(key, buffers.pop(key))
+        # layering is complete: TAPE7 (IPUNCH=1, lblatm.f90:1264-1340)
+        # goes BEFORE the remaining device work, so that a mid-compute
+        # failure cannot lose the layering output
+        if self.punched and s.is_main:
+            write_tape7(s.outdir / "TAPE7", self.punched, xid=s.cfg.xid)
+        for key in list(buffers):
+            yield self.stack(key, buffers.pop(key))
+
+    def prep_profile(self, npr0: int, prof) -> dict:
+        """Per-profile host prep (LOG tables, scaling, columns, xsec OD):
+        the reference's per-profile preamble (monortm.f90:369-551)."""
+        cfg, log = self.s.cfg, self.log
         st, meta = prof.state, prof.meta
         wkl = st.wkl
         log.write(f"1 PROFILE {npr0}\n")
@@ -568,14 +556,14 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
             _log_layer_table(log, st.p, st.t, wkl, st.wbrodl, meta.nmol)
         pwv, clw_col = integr(wkl, st.clw)
 
-        # cross-section molecules (IATM=0 layer amounts;
-        # monortm.f90:492-532 + MONORTM_XSEC_SUB), prepared above
-        od_xsec = xsec_results.get(npr0 - 1)
+        # cross-section molecules, from the pre-pass
+        od_xsec = self.xsec.get(npr0 - 1)
 
         # optional TES cloud OD file (see io/cldod.py), added to the
         # cross-section OD, which the device adds to the total
-        if cld_file.exists():
-            extra = cloud_od_on_grid(cld_file, wn, st.t.shape[-1])
+        if self.cld_file.exists():
+            extra = cloud_od_on_grid(self.cld_file, self.s.wn,
+                                     st.t.shape[-1])
             od_xsec = extra if od_xsec is None else od_xsec + extra
 
         irt = irt_from_angle(meta.angle)
@@ -586,118 +574,23 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                     clw_col=clw_col, od_xsec=od_xsec,
                     irt=irt, tbound=tbound)
 
-    npdt = np.float64 if dtype == torch.float64 else np.float32
-    results: dict[int, Any] = {}
-    keep_layers = cfg.iod == 1 or netcdf
-    host_bytes = [0]
-    # the chunk cap's budget, read on this (the consumer's) thread; on a
-    # mesh a card's memory is split among the ranks that share it, and
-    # every rank takes the smallest budget, so that all chunk alike
-    budget = _device_budget_bytes(device)
-    if mesh is not None:
-        sharing = distributed.rank_devices(device).count(str(device))
-        budget = float(distributed.all_reduce(
-            torch.tensor(budget / sharing, dtype=torch.float64),
-            mesh.group(*mesh.shape), "min"))
-    n_cat = len(catalog.mol)
-
-    def pull(x, wn_sizes=None, wn_dim=1):
-        """Device -> host with transfer-byte accounting (the LOG line
-        proves the default path never hauls a per-layer array).  On a
-        mesh the rank's (prof, wn) block is all-gathered, so that every
-        rank holds the whole chunk."""
-        if x is None:
-            return None
-        if mesh is None:
-            a = x.cpu().numpy()
-        else:
-            a = distributed.gather_to_host(x, mesh, wn_dim, wn_sizes)
-        host_bytes[0] += a.nbytes
-        return a
-
-    def ensure_model(nmol):
-        """Build (once, on the consumer thread) the model of an nmol
-        group."""
-        if nmol not in model_cache:
-            with timer.stage("model-build"):
-                model_cache[nmol] = MonoRTM(
-                    wn, cfg.dvset, catalog, nmol=nmol,
-                    factors=cfg.factors,
-                    line_cfg=LineConfig(ibrd=cfg.ibrd), device=device,
-                    dtype=dtype, wn_tile=WN_TILE, line_tile=LINE_TILE,
-                    dense_wn_tile=wn_tile, dense_line_tile=line_tile,
-                    kernels=engine != "dense", mesh=mesh)
-        return model_cache[nmol]
-
-    def produce():
-        """The producer: profiles (possibly streaming out of the
-        layering worker pool) -> per-profile prep -> same-shape chunk
-        buffers (one [B, nlay] forward per chunk; the reference runs
-        profile by profile, monortm.f90:357) -> host-stacked work items,
-        yielded in deterministic order.  Host work only."""
-        buffers: dict[tuple, list[int]] = {}
-        bmax_of: dict[tuple, int] = {}
-
-        def emit(key):
-            nlay, irt_, nmol, has_x = key
-            return host_prep(dict(nlay=nlay, irt=irt_, nmol=nmol,
-                                  has_x=has_x, chunk=buffers.pop(key)))
-
-        if profiles is not None:
-            src = iter(profiles)
-        else:
-            src = profiles_from_tape5_iter(
-                filein, cfg, workers=workers,
-                pool_stage=lambda: timer.stage("layering.pool"),
-                report=torch_free.append)
-        npr0 = 0
-        while True:
-            if profiles is None:
-                with timer.stage("profiles+layering"):
-                    prof = next(src, None)
-            else:
-                prof = next(src, None)
-            if prof is None:
-                break
-            npr0 += 1
-            with timer.stage("host-prep"):
-                pr = prep_profile(npr0, prof)
-            prepped.append(pr)
-            if getattr(prof, "ipunch", 0) == 1:
-                punched.append(prof)
-            key = (pr["st"].t.shape[-1], pr["irt"], pr["meta"].nmol,
-                   pr["od_xsec"] is not None)
-            buffers.setdefault(key, []).append(len(prepped) - 1)
-            if key not in bmax_of:
-                bmax_of[key] = _max_batch(
-                    len(wn), key[0], key[2], n_cat, budget,
-                    itemsize=np.dtype(npdt).itemsize,
-                    dense=engine == "dense", n_prof_shards=n_prof_shards,
-                    wn_tile=wn_tile, line_tile=line_tile)
-            if len(buffers[key]) >= bmax_of[key]:
-                yield emit(key)
-        # layering is complete here: write the TAPE7 checkpoint artifact
-        # BEFORE the remaining device work so a mid-compute failure
-        # cannot lose the layering output (the reference writes it from
-        # LBLATM, lblatm.f90:1264-1340)
-        if punched and is_main:
-            write_tape7(Path(outdir) / "TAPE7", punched, xid=cfg.xid)
-        for key in list(buffers):         # flush partial buffers
-            yield emit(key)
-
-    def host_prep(item):
-        """Stack the chunk's host arrays in the compute dtype (numpy, on
-        the producer thread, while the device runs the previous chunk).
-        On a mesh the chunk is padded to whole prof shards by repeating
+    def stack(self, key: tuple, chunk: list[int]) -> dict:
+        """A chunk's work item, its host arrays stacked in the compute
+        dtype.  On a mesh the chunk is padded to whole prof shards with
         its last profile (whose outputs are dropped), and the rank stacks
         its own profile block."""
-        prs = [prepped[i] for i in item["chunk"]]
-        prs += [prs[-1]] * ((-len(prs)) % n_prof_shards)
-        with timer.stage("host-stack"):
-            nstack = lambda f, ps: np.stack([f(p) for p in ps]).astype(npdt)
+        s = self.s
+        nlay, irt, nmol, has_x = key
+        item = dict(nlay=nlay, irt=irt, nmol=nmol, has_x=has_x, chunk=chunk)
+        prs = [self.prepped[i] for i in chunk]
+        prs += [prs[-1]] * ((-len(prs)) % self.shards)
+        with s.timer.stage("host-stack"):
+            nstack = lambda f, ps: np.stack([f(p) for p in ps]).astype(
+                s.npdt)
             item["tsfc"] = nstack(lambda p: np.asarray([p["tbound"]]), prs)
-            if mesh is not None:
-                start, count = distributed.host_local_batch(len(prs), mesh)
+            if s.mesh is not None:
+                start, count = distributed.host_local_batch(len(prs),
+                                                            s.mesh)
                 prs = prs[start:start + count]
             item["host"] = HostState(
                 p=nstack(lambda p: p["st"].p, prs),
@@ -706,30 +599,74 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                 wkl=nstack(lambda p: p["wkl"], prs),
                 wbrodl=nstack(lambda p: p["st"].wbrodl, prs),
                 clw=nstack(lambda p: p["st"].clw, prs))
-            if item["has_x"]:
+            if has_x:
                 item["ox"] = nstack(lambda p: p["od_xsec"], prs)
         return item
 
-    def dispatch(item):
-        """Upload the chunk, choose its engines and enqueue its device
-        work; the synchronous pull happens in finalize() after the next
-        chunk has been dispatched."""
-        model = ensure_model(item["nmol"])
-        with timer.stage("host->device"):
-            state = state_from_numpy(item.pop("host"), device, dtype)
+
+class _DeviceStage:
+    """The device half of a run, on the caller's thread, which makes
+    every CUDA call.  It owns the models, `results` ({profile index:
+    ProfileOutput}), `pulled` (bytes device -> host) and `engines` (per
+    chunk: profiles, engine, the layers the all-Lorentz kernel took)."""
+
+    def __init__(self, s: _Setup, catalog, emis, refl):
+        self.s, self.catalog, self.emis, self.refl = s, catalog, emis, refl
+        # the chunk cap's budget; on a mesh the ranks sharing a card split
+        # it, and all take the smallest, so that all chunk alike
+        self.budget = _device_budget_bytes(s.device)
+        if s.mesh is not None:
+            sharing = distributed.rank_devices(s.device).count(str(s.device))
+            self.budget = float(distributed.all_reduce(
+                torch.tensor(self.budget / sharing, dtype=torch.float64),
+                s.mesh.group(*s.mesh.shape), "min"))
+        self.models: dict[int, MonoRTM] = {}
+        self.results: dict[int, ProfileOutput] = {}
+        self.pulled = 0
+        self.engines: list[tuple] = []
+
+    def pull(self, x, wn_sizes=None, wn_dim=1):
+        """Device -> host, its bytes counted (HOST PULL shows that the
+        default path never hauls a per-layer array); on a mesh the rank's
+        (prof, wn) block is all-gathered, so every rank holds the chunk."""
+        if x is None:
+            return None
+        if self.s.mesh is None:
+            a = x.cpu().numpy()
+        else:
+            a = distributed.gather_to_host(x, self.s.mesh, wn_dim, wn_sizes)
+        self.pulled += a.nbytes
+        return a
+
+    def dispatch(self, item: dict) -> dict:
+        """Build the chunk's model if new, upload the chunk, choose its
+        engines and enqueue its device work; `finalize` pulls it."""
+        s, nmol = self.s, item["nmol"]
+        if nmol not in self.models:     # each nmol group's, once
+            with s.timer.stage("model-build"):
+                self.models[nmol] = MonoRTM(
+                    s.wn, s.cfg.dvset, self.catalog, nmol=nmol,
+                    factors=s.cfg.factors,
+                    line_cfg=LineConfig(ibrd=s.cfg.ibrd), device=s.device,
+                    dtype=s.dtype, wn_tile=WN_TILE, line_tile=LINE_TILE,
+                    dense_wn_tile=s.wn_tile, dense_line_tile=s.line_tile,
+                    kernels=s.engine != "dense", mesh=s.mesh)
+        model = self.models[nmol]
+        with s.timer.stage("host->device"):
+            state = state_from_numpy(item.pop("host"), s.device, s.dtype)
             ox = item.pop("ox", None)
             if ox is not None:
-                ox = torch.as_tensor(ox, device=device)
+                ox = torch.as_tensor(ox, device=s.device)
         # the per-layer zeta > 0.99 predicate on the model's device at
         # margin 0; its verdict (one bool per layer) is a host sync
-        eng, lor = engine, ()
-        if engine == "hybrid":
-            with timer.stage("engine-predicate"):
+        eng, lor = s.engine, ()
+        if s.engine == "hybrid":
+            with s.timer.stage("engine-predicate"):
                 eng, lor = model.engine_split(state)
-        out.engines.append((len(item["chunk"]), eng,
-                            tuple(range(item["nlay"])) if eng == "lorentz"
-                            else tuple(lor)))
-        with timer.stage("device-dispatch"), torch.no_grad():
+        self.engines.append((len(item["chunk"]), eng,
+                             tuple(range(item["nlay"])) if eng == "lorentz"
+                             else tuple(lor)))
+        with s.timer.stage("device-dispatch"), torch.no_grad():
             od = model.od_model(state, engine=eng, lor_layers=lor,
                                 od_xsec=ox)
             # layer reductions on the device: the [B, W, M, L] array
@@ -742,18 +679,19 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
             parts = rt_parts(od.od_total, state.t[..., None, :],
                              state.tz[..., None, :], model.od_model.wn_t)
         item.update(parts=parts, red=red,
-                    odt=od.od_total if keep_layers else None,
-                    odfull=od if netcdf else None,
+                    odt=od.od_total if s.cfg.iod == 1 or s.netcdf else None,
+                    odfull=od if s.netcdf else None,
                     wn_sizes=model.od_model.wn_sizes)
         return item
 
-    def finalize(item):
-        """Synchronous device->host pull, the O(W) numpy boundary
-        combine and result storage."""
-        with timer.stage("device->host"):
+    def finalize(self, item: dict):
+        """Pull the chunk, combine the boundary (O(W) numpy) and keep each
+        profile's result."""
+        s, pull = self.s, self.pull
+        with s.timer.stage("device->host"):
             ws = item["wn_sizes"]
             parts_h = RTParts(*(pull(v, ws) for v in item["parts"]))
-            red_h = {k: ({s: pull(a, ws) for s, a in v.items()}
+            red_h = {k: ({sp: pull(a, ws) for sp, a in v.items()}
                          if isinstance(v, dict) else pull(v, ws))
                      for k, v in item["red"].items()}
             odt_h = pull(item["odt"], ws)
@@ -765,21 +703,21 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                 od_clw=pull(od.od_clw, ws, 2),
                 od_xsec=pull(od.od_xsec, ws, 2))
         rad_h, tb_h, tmr_h = combine_boundary_np(
-            wn, parts_h.rup, parts_h.rdn, parts_h.trtot,
-            parts_h.radtmr, item["tsfc"], emis, refl, item["irt"],
-            dtype=npdt)
+            s.wn, parts_h.rup, parts_h.rdn, parts_h.trtot,
+            parts_h.radtmr, item["tsfc"], self.emis, self.refl, item["irt"],
+            dtype=s.npdt)
         full_h = None
         if od_h is not None:
             full_h = ForwardResult(
                 rt=RTResult(rad=rad_h, tb=tb_h, rup=parts_h.rup,
                             rdn=parts_h.rdn, trtot=parts_h.trtot,
                             tmr=tmr_h),
-                od=od_h, emis=emis, refl=refl)
+                od=od_h, emis=self.emis, refl=self.refl)
         for bi, i in enumerate(item["chunk"]):
-            results[i] = ProfileOutput(
+            self.results[i] = ProfileOutput(
                 tb=tb_h[bi], tmr=tmr_h[bi], rad=rad_h[bi],
                 trtot=parts_h.trtot[bi], rup=parts_h.rup[bi],
-                rdn=parts_h.rdn[bi], emis=emis, refl=refl,
+                rdn=parts_h.rdn[bi], emis=self.emis, refl=self.refl,
                 otot=red_h["otot"][bi],
                 by_mol=red_h["by_mol"][bi],
                 oc={k: v[bi] for k, v in red_h["oc"].items()},
@@ -788,113 +726,210 @@ def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
                 full=(_slice_result(full_h, bi)
                       if full_h is not None else None))
 
-    # ---- software pipeline over chunks: the producer thread layers and
-    # preps chunk N+1 while the device runs chunk N, and the synchronous
-    # pull of chunk N happens only after chunk N+1 has been dispatched
-    with profile_trace(profile_dir):
-        q: Any = queue.Queue(maxsize=2)
-        stop = threading.Event()
 
-        def _put(x):
-            """Bounded put that gives up if the consumer died."""
-            while not stop.is_set():
-                try:
-                    q.put(x, timeout=1.0)
-                    return
-                except queue.Full:
-                    continue
+def _in_background(gen, timer: StageTimer):
+    """The items of the generator `gen`, which runs ahead on a daemon
+    thread through a queue of two; each wait is the stage `queue-wait`,
+    and an exception of `gen` is raised here.  Closed early, this stops
+    the thread, which closes `gen`, and joins it (30 s)."""
+    q: queue.Queue = queue.Queue(maxsize=2)
+    stop = threading.Event()
 
-        def feeder():
+    def put(msg):        # gives up once the caller has stopped
+        while not stop.is_set():
             try:
-                for it in produce():
-                    _put(it)
-                    if stop.is_set():
-                        return
-                _put(("done", None))
-            except BaseException as e:    # re-raised in the consumer
-                _put(("err", e))
+                q.put(msg, timeout=1.0)
+                return
+            except queue.Full:
+                continue
 
-        th = threading.Thread(target=feeder, daemon=True)
-        th.start()
+    def feed():
         try:
-            pending = None
-            while True:
-                with timer.stage("queue-wait"):
-                    nxt = q.get()
-                if isinstance(nxt, tuple):
-                    if nxt[0] == "err":
-                        raise nxt[1]
-                    break
-                dev = dispatch(nxt)
-                if pending is not None:
-                    finalize(pending)
-                pending = dev
-            if pending is not None:
-                finalize(pending)
+            for x in gen:
+                put(("item", x))
+                if stop.is_set():
+                    return
+            put(("done", None))
+        except BaseException as e:        # re-raised in the caller
+            put(("err", e))
         finally:
-            # unblock and retire the producer even when dispatch or
-            # finalize raised
-            stop.set()
-            th.join(timeout=30.0)
+            gen.close()
 
-    results = [results[i] for i in range(len(prepped))]
-
-    # ---- write outputs in input order --------------------------------
-    with writer:
-        for i, (pr, res) in enumerate(zip(prepped, results)):
-            npr = i + 1
-            st, meta = pr["st"], pr["meta"]
-            with timer.stage("output"):
-                writer.write_profile(npr, wn, res, st, meta, pr["pwv"],
-                                     pr["clw_col"], pr["tbound"],
-                                     meta.angle)
-            if cfg.iod == 1 and is_main:
-                writer.write_layer_ods(npr, wn, res.od_layers, outdir)
-            if netcdf and is_main:  # USENETCDF (monortm_sub.F90:698-778)
-                write_netcdf(Path(outdir) / f"MONORTM.{npr:05d}.nc", npr,
-                             wn, res.full, st, meta, pr["pwv"],
-                             pr["clw_col"], pr["tbound"], meta.angle)
-
-            out.tb.append(np.asarray(res.tb))
-            out.rad.append(np.asarray(res.rad))
-            out.results.append(res)
-            log.write(f"PROFILE {npr:5d}: NLAYRS={st.t.shape[-1]:4d} "
-                      f"ANGLE={meta.angle:8.3f} IRT={pr['irt']} "
-                      f"PWV={pr['pwv']:8.4f} CLW={pr['clw_col']:8.4f}\n")
-            if is_main:
-                print(f"PROCESSING PROFILE NUMBER: {npr:5d}")
-    # version-stamp tail (monortm.f90:591-619, format 1000): same layout,
-    # the port's module identities in the A15 fields
+    th = threading.Thread(target=feed, name="pipeline-producer",
+                          daemon=True)
+    th.start()
     try:
-        hvrspec = read_tape3_header(hfile)[:15]
-    except (OSError, EOFError):
-        hvrspec = "(no TAPE3 hdr)"
-    _v = __version__
-    a15 = lambda s: f"{s[:15]:<15s}"
-    log.write("\n--------------------------------------\n")
-    log.write("Modules and versions used in this calculation:\n\n")
-    log.write(a15("Release  5.6") + "\n\n")
-    log.write(f"     spectral file :     {a15(hvrspec)}\n")
-    log.write(f"     monortm.f     :     {a15('pipeline ' + _v)}          "
-              f"modm.f           :      {a15('models.od ' + _v)}\n")
-    log.write(f"     monortm_sub.f :     {a15('io.output ' + _v)}          "
-              f"lblatm_monortm.f :      {a15('atmos ' + _v)}\n")
-    log.write(f"     package       :     monortm_tpu_torch {_v} (torch "
-              f"{torch.__version__}, {device})\n")
-    log.write(f" HOST PULL: {host_bytes[0]} bytes device->host "
-              f"(per-layer arrays pulled: {keep_layers})\n")
-    if mesh is not None:
-        shape = " x ".join(f"{k} {v}" for k, v in mesh.shape.items())
-        log.write(f" MESH: {shape} over {mesh.size()} ranks, backend "
-                  f"{dist.get_backend()}\n")
-    for n, eng, lor in out.engines:
-        log.write(f" ENGINE SPLIT: {n} profile(s): {eng}, {len(lor)} "
-                  f"all-Lorentz layer(s)\n")
-    if iatm == 1:
-        log.write(f" LAYERING: {len(prepped)} profile(s) over {n_layering} "
-                  f"worker process(es), {len(out.engines)} chunk(s), "
-                  f"{sum(torch_free)} without torch\n")
-    log.write(timer.report())
-    log.close()
-    return out
+        while True:
+            with timer.stage("queue-wait"):
+                kind, x = q.get()
+            if kind == "err":
+                raise x
+            if kind == "done":
+                return
+            yield x
+    finally:
+        stop.set()
+        th.join(timeout=30.0)
 
+
+def _write_outputs(s: _Setup, writer, log, prepped, results):
+    """MONORTM.OUT (each profile's block the stage `output`), on rank 0 the
+    IOD=1 layer files and NetCDF (monortm_sub.F90:698-778), and the LOG's
+    `PROFILE n:` lines, in input order."""
+    for npr, (pr, res) in enumerate(zip(prepped, results), 1):
+        st, meta = pr["st"], pr["meta"]
+        with s.timer.stage("output"):
+            writer.write_profile(npr, s.wn, res, st, meta, pr["pwv"],
+                                 pr["clw_col"], pr["tbound"], meta.angle)
+        if s.cfg.iod == 1 and s.is_main:
+            writer.write_layer_ods(npr, s.wn, res.od_layers, s.outdir)
+        if s.netcdf and s.is_main:
+            write_netcdf(s.outdir / f"MONORTM.{npr:05d}.nc", npr, s.wn,
+                         res.full, st, meta, pr["pwv"], pr["clw_col"],
+                         pr["tbound"], meta.angle)
+        log.write(f"PROFILE {npr:5d}: NLAYRS={st.t.shape[-1]:4d} "
+                  f"ANGLE={meta.angle:8.3f} IRT={pr['irt']} "
+                  f"PWV={pr['pwv']:8.4f} CLW={pr['clw_col']:8.4f}\n")
+        if s.is_main:
+            print(f"PROCESSING PROFILE NUMBER: {npr:5d}")
+
+
+def run(filein="MONORTM.IN", fileprof="MONORTM_PROF.IN", hfile="TAPE3",
+        fileout="MONORTM.OUT", outdir=".", *, device="cuda",
+        dtype: torch.dtype = torch.float32, engine: str = "auto",
+        wn_tile: int = DENSE_WN_TILE, line_tile: int = DENSE_LINE_TILE,
+        emis_dir=None, netcdf: bool = False, profile_dir=None,
+        workers=None, mesh="auto") -> RunResult:
+    """Run the full MONORTM.IN -> MONORTM.OUT pipeline on one device or,
+    in a torch.distributed run, on a mesh of ranks.
+
+    device: "cuda" (the default; raises without a card) or "cpu", where
+    the line sums take their plain PyTorch versions.  dtype: float32 or
+    float64.  engine: "auto" (float32: both line-sum kernels through the
+    per-chunk engine split; float64: "dense"), "dense" or its JAX name
+    "xla" (the dense engine), "full" or its JAX name "pallas" (the
+    VOIGT=true kernel alone) or "hybrid" (the kernels through the split);
+    an alias runs, logs and reports as the port's name.  The kernels are
+    float32, so "full"/"pallas" and "hybrid" at float64 raise, where the
+    JAX package quietly takes its dense engine instead: that fallback
+    would hide the kernel the caller named.  wn_tile / line_tile (the
+    JAX package's, with its defaults): the dense engine's block of
+    wavenumbers and lines; the kernels keep their own plan (LINE_TILE,
+    WN_TILE).  emis_dir: the directory of the EMISSION /
+    REFLECTION files (default: the "in" directory beside MONORTM.IN).
+    workers: host processes for IATM=1 layering
+    (atmos.tape5_atm.profiles_from_tape5_iter; a run with a pool times
+    its start as the stage `layering.pool`, inside `profiles+layering`,
+    and MONORTM.LOG's LAYERING line counts the profiles, processes,
+    chunks and the pool's workers that ran without torch).
+    profile_dir: write a torch.profiler trace there.
+    mesh: "auto" (every rank of a torch.distributed run on a (prof, wn)
+    mesh, `_auto_mesh`; one device otherwise), None (one device per
+    process) or a `parallel.sharding.Mesh` over the world's ranks;
+    `device` is then this rank's.
+    """
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be float32 or float64: {dtype}")
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}: {engine!r}")
+    if min(wn_tile, line_tile) < 1:
+        raise ValueError(f"wn_tile and line_tile must be positive: "
+                         f"{wn_tile}, {line_tile}")
+    asked, engine = engine, ENGINE_ALIASES.get(engine, engine)
+    if engine == "auto":
+        engine = "hybrid" if dtype == torch.float32 else "dense"
+    if engine != "dense" and dtype != torch.float32:
+        raise ValueError(f"engine {asked!r} runs the float32 line-sum "
+                         f"kernels; a {dtype} run takes engine='dense'")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("run(device='cuda') needs a CUDA device; pass "
+                           "device='cpu' to run on the CPU")
+    filein = Path(filein)
+    Path(outdir).mkdir(parents=True, exist_ok=True)
+    timer = StageTimer()
+    with timer.stage("tape5-parse"):
+        iatm, ixsect, nprof = count_profiles(filein, fileprof)
+        cfg = Tape5Reader(filein).read_block()
+    wn = cfg.wn
+    if cfg.nwn == 0:
+        raise ValueError("no wavenumbers configured")
+
+    # packed to the kernel plan's line tile whatever line_tile is (the JAX
+    # package packs to min(line_tile, 4096), monortm_tpu/pipeline.py:315):
+    # both engines' tiles drop the padding lines (valid=0), so the pack
+    # tile changes no value
+    with timer.stage("line-catalog"):
+        catalog = load_catalog(hfile, float(wn[0]), float(wn[-1]),
+                               tile=LINE_TILE)
+
+    # boundary spectra (EMISS_REFLEC, monortm_sub.F90:506-516)
+    ed = Path(emis_dir) if emis_dir else filein.parent / "in"
+    emis = emis_io.boundary_spectrum(
+        wn, cfg.bndemi, ed / "EMISSION" if cfg.bndemi[0] < 0 else None)
+    refl = emis_io.boundary_spectrum(
+        wn, cfg.bndrfl, ed / "REFLECTION" if cfg.bndrfl[0] < 0 else None)
+
+    # profiles: IATM=0 parses the layer file here; IATM=1 streams the
+    # layering (a worker pool for many profiles) into the producer, so
+    # that the device starts on early profiles while later ones are
+    # layered, except in an IXSECT run, whose pre-pass needs them all
+    without_torch: list[int] = []
+    if iatm == 0:
+        with timer.stage("profiles+layering"):
+            profiles = read_profiles(fileprof, ixsect=ixsect)
+    else:
+        profiles = profiles_from_tape5_iter(
+            filein, cfg, workers=workers,
+            pool_stage=functools.partial(timer.stage, "layering.pool"),
+            report=without_torch.append)
+        if cfg.ixsect >= 1:
+            with timer.stage("profiles+layering"):
+                profiles = list(profiles)
+
+    # the (prof, wn[, line]) mesh (every rank makes its process groups
+    # here, in one order); only rank 0 writes files
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh must be 'auto', None or a Mesh: {mesh!r}")
+        mesh = _auto_mesh(len(profiles) if isinstance(profiles, list)
+                          else nprof)
+    if mesh is not None and mesh.size() == 1:
+        mesh = None
+    s = _Setup(cfg=cfg, wn=wn, device=device, dtype=dtype,
+               npdt=np.float64 if dtype == torch.float64 else np.float32,
+               engine=engine, wn_tile=wn_tile, line_tile=line_tile,
+               mesh=mesh, timer=timer, outdir=Path(outdir), netcdf=netcdf,
+               is_main=not dist.is_initialized() or dist.get_rank() == 0)
+
+    with OutputWriter(s.outdir / fileout if s.is_main else os.devnull) \
+            as writer, open(s.outdir / "MONORTM.LOG" if s.is_main
+                            else os.devnull, "w") as log:
+        _log_header(log, cfg, catalog)
+        xsec = (_xsec_prepass(profiles, wn, filein.parent, timer)
+                if cfg.ixsect >= 1 else {})
+        stage = _DeviceStage(s, catalog, emis, refl)
+        producer = _Producer(s, profiles, without_torch, xsec, log,
+                             filein.parent / "in_lblrtm_cld", stage.budget,
+                             len(catalog.mol))
+        # the producer layers and preps chunk N+1 on its thread while the
+        # device runs chunk N, whose synchronous pull comes only after
+        # chunk N+1 has been dispatched
+        with profile_trace(profile_dir), contextlib.closing(
+                _in_background(producer.chunks(), timer)) as items:
+            pending = None
+            for item in items:
+                item = stage.dispatch(item)
+                if pending is not None:
+                    stage.finalize(pending)
+                pending = item
+            if pending is not None:
+                stage.finalize(pending)
+
+        results = [stage.results[i] for i in range(len(producer.prepped))]
+        _write_outputs(s, writer, log, producer.prepped, results)
+        _log_tail(s, log, hfile, stage, producer,
+                  layering_workers(nprof, workers) if iatm == 1 else None)
+    return RunResult(wn=wn, tb=[np.asarray(r.tb) for r in results],
+                     rad=[np.asarray(r.rad) for r in results],
+                     results=results, engines=stage.engines)

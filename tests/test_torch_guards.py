@@ -245,11 +245,11 @@ POOL_PARENT = """
 import sys
 import torch
 import monortm_tpu_torch.cli
-from monortm_tpu_torch.atmos.tape5_atm import profiles_from_tape5
+from monortm_tpu_torch.atmos.tape5_atm import profiles_from_tape5_iter
 if __name__ == "__main__":
     n = []
-    profs = profiles_from_tape5(sys.argv[1], None, workers=2,
-                                report=n.append)
+    profs = list(profiles_from_tape5_iter(sys.argv[1], None, workers=2,
+                                          report=n.append))
     print(len(profs), n, "torch" in sys.modules)
 """
 

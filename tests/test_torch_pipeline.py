@@ -15,9 +15,15 @@ rundirs at the e2e oracle's float64 budgets (tests/test_e2e_oracle.py):
 Tb and TMR within 1e-9 K, radiance, transmittance and OD at rtol 1e-10
 (atol 1e-14), every numeric token of MONORTM.OUT likewise.  A chunked run
 writes the same bytes as a single chunk.
+
+`pipeline._in_background`, the hand-off from the producer thread, raises
+the producer's exception in the caller, and once closed after the caller
+raised leaves neither its thread nor the producer's generator running.
 """
 
+import contextlib
 import re
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +34,7 @@ from monortm_tpu_torch import cli
 from monortm_tpu_torch import pipeline
 from monortm_tpu_torch.pipeline import run
 from monortm_tpu_torch.testing import make_minimal_rundir
+from monortm_tpu_torch.utils.trace import StageTimer
 from tests.test_torch_io import iatm1_tape5
 
 RTOL, ATOL = 5e-5, 1e-4
@@ -358,3 +365,32 @@ def test_stacked_iatm1_worker_pool(tmp_path):
         (tmp_path / "two" / "MONORTM.OUT").read_bytes()
     assert (tmp_path / "one" / "TAPE7").read_bytes() == \
         (tmp_path / "two" / "TAPE7").read_bytes()
+
+
+@pytest.mark.parametrize("raiser", ["producer", "caller"])
+def test_in_background_raises_and_retires_its_thread(raiser):
+    ran_on, closed_on = [], []
+
+    def produce():
+        ran_on.append(threading.current_thread())
+        try:
+            yield 1
+            if raiser == "producer":
+                raise ValueError("producer")
+            while True:
+                yield 2
+        finally:
+            closed_on.append(threading.current_thread())
+
+    items = pipeline._in_background(produce(), StageTimer())
+    with pytest.raises(ValueError, match=raiser):
+        with contextlib.closing(items):
+            assert next(items) == 1
+            if raiser == "caller":
+                raise ValueError("caller")
+            next(items)
+    # the generator ran, and was closed, on the hand-off's own thread,
+    # which is gone
+    assert ran_on == closed_on
+    assert ran_on[0] is not threading.current_thread()
+    assert not ran_on[0].is_alive()

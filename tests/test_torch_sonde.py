@@ -15,8 +15,10 @@ layout) through the port on the CPU.
   LAYERING line.  The line's last field counts the pool's workers that
   ran without torch: all of them with a pool, 0 without one.
 - A 2-worker pool's profiles (IATM=1 with IXSECT=1, so with
-  cross-section amounts), from the list and the streaming variant, are
-  bitwise those of the caller's own layering (workers=1).
+  cross-section amounts) are bitwise those of the caller's own layering
+  (workers=1); such a file through `pipeline.run`, which layers it all
+  before its cross-section pre-pass, writes the same MONORTM.OUT with a
+  pool of 2 as without one.
 """
 
 import dataclasses
@@ -32,11 +34,13 @@ from benchmark.reference import inputs as I
 from benchmark.reference import layering as LA
 from benchmark.reference.model import Reference
 from benchmark.run import ROOT
-from monortm_tpu_torch.atmos.tape5_atm import (atmpth, profiles_from_tape5,
+from monortm_tpu_torch.atmos.tape5_atm import (atmpth,
                                                 profiles_from_tape5_iter)
+from monortm_tpu_torch.io.tape3 import write_tape3
 from monortm_tpu_torch.io.tape5 import Tape5Reader
 from monortm_tpu_torch.pipeline import run
-from monortm_tpu_torch.testing import make_minimal_rundir, write_xsec_data
+from monortm_tpu_torch.testing import (make_minimal_rundir, write_xsec_data,
+                                       xsec_tape3_lines)
 
 CFG = json.loads((ROOT / "benchmark" / "configs" / "mw_sonde.json")
                  .read_text())
@@ -147,21 +151,24 @@ def _bits(x):
     return a.dtype, a.shape, a.tobytes()
 
 
-@pytest.mark.parametrize("variant", ["list", "stream"])
-def test_pooled_layering_is_bitwise_serial(variant, tmp_path):
+def _stacked_xsec_file(d):
     """8 blocks with record 3.7 (CCL4's standard profile) over 795-805
-    cm^-1: the pool's profiles, field by field, are the serial ones."""
+    cm^-1, with FSCDXS and its spectra beside them."""
     from tests.test_torch_io import CASE1_REST, stacked_iatm1_tape5
-    write_xsec_data(tmp_path, ("CCL4",))
-    tape5 = tmp_path / "MONORTM.IN"
+    write_xsec_data(d, ("CCL4",))
+    tape5 = d / "MONORTM.IN"
     tape5.write_text(stacked_iatm1_tape5(
         8, rest=CASE1_REST[:3] + ["    1    1    0", "CCL4      "],
         v1=795.0, v2=805.0, dvset=2.0, ixsect=1))
+    return tape5
+
+
+def test_pooled_layering_is_bitwise_serial(tmp_path):
+    """The pool's profiles of `_stacked_xsec_file`, field by field, are
+    the serial ones."""
+    tape5 = _stacked_xsec_file(tmp_path)
 
     def layer(workers, report=None):
-        if variant == "list":
-            return profiles_from_tape5(tape5, None, workers=workers,
-                                       report=report)
         return list(profiles_from_tape5_iter(tape5, None, workers=workers,
                                              report=report))
 
@@ -183,3 +190,25 @@ def test_pooled_layering_is_bitwise_serial(variant, tmp_path):
         assert _bits(a.xamnt) == _bits(b.xamnt)
         for f in ("secnt0", "hmod", "xsname", "ityl", "path", "ipunch"):
             assert getattr(a, f) == getattr(b, f), f
+
+
+def test_pooled_xsec_run_writes_the_serial_bytes(tmp_path):
+    """`_stacked_xsec_file` through `run`: every profile is layered before
+    the cross-section pre-pass, by a pool of 2 as by the caller, and
+    MONORTM.OUT has the same bytes."""
+    tape5 = _stacked_xsec_file(tmp_path)
+    write_tape3(tmp_path / "TAPE3", xsec_tape3_lines())
+    outs = {}
+    for workers in (2, 1):
+        out = tmp_path / f"out{workers}"
+        run(filein=tape5, hfile=tmp_path / "TAPE3", outdir=out,
+            device="cpu", workers=workers)
+        log = (out / "MONORTM.LOG").read_text()
+        assert f" LAYERING: 8 profile(s) over {workers} worker " \
+               f"process(es), " in log
+        stages = _stages(log)
+        assert stages["xsec-prep"] == 1
+        assert stages["profiles+layering"] == 1     # the whole list
+        assert stages.get("layering.pool") == (1 if workers > 1 else None)
+        outs[workers] = (out / "MONORTM.OUT").read_bytes()
+    assert outs[2] == outs[1]
