@@ -168,12 +168,28 @@ on the GPU):
     value_and_grad step at the retrieval shape: its prologue launches by
     the counters and the kernels inside the `lines` and `lines.bwd`
     spans by the profiler (at most PRO_SPAN_LIMIT).
+  17 the continuum and cloud kernels (csrc/continuum.cu, CONTINUUM_KERNEL):
+    the seven outputs bitwise those of the eager stage
+    (`ContinuumPlan.__call__` + `ops.cloud.od_clw`) on the same CUDA
+    tensors, at the retrieval shape (8 x 40 rows, 101 wn), at 64 x 40
+    rows, on phase 10's infrared grid (every sub-continuum and Rayleigh)
+    and at the envelope's 200 rows x 80000 wn; the adjoint twice with the
+    same bits and against autograd through the eager stage in float32 and
+    float64 (CONT_TOL of each gradient's norm, or CONT_F32_FACTOR times
+    float32 autograd's own distance from float64 where that is larger);
+    forward and adjoint ms by CUDA events beside the eager stage's and a
+    bound by bytes, at the retrieval shape and the envelope; registers;
+    the kernels of the stage's forward and backward at the retrieval
+    shape, eager and through the kernels; one value_and_grad step at the
+    retrieval shape: one call of each entry point, and the kernels inside
+    the `continuum` and `continuum.bwd` spans (at most CONT_SPAN_LIMIT).
 
 Run from the repository root:  python3 chip_smoke.py
 (`python3 chip_smoke.py --batch-stages` builds the kernels and runs only
 phase 8's stage-by-stage chunk comparison; `--envelope` builds them and
 runs only phases 14 and 15, printing their readings as JSON; `--prologue`
 builds them and runs only phase 16, printing its readings as JSON;
+`--continuum` the same for phase 17;
 `--float64` runs only phase 9, building nothing; `--mesh-rank DIR MESH`
 is one rank of phase 13's gradient check, started by phase 13.)
 Exits non-zero (and prints no result line) without a CUDA device or when
@@ -206,6 +222,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from monortm_tpu_torch import testing
 
 RTOL = 2e-5          # tests/test_pallas.py's kernel tolerance
 ATOL_REL = 2e-6      # atol = ATOL_REL * max|ref|
@@ -319,22 +337,8 @@ C2_LIMIT = 1.5e-6
 # phase 12: the big synthetic TAPE3 (records), the layering's repeats
 NATIVE_H2O, NATIVE_O2, NATIVE_REPS = 180000, 10000, 5
 # phase 10: sub-continuum -> (species, a wavenumber range inside its
-# activation test), three points each
-IR_BANDS = {
-    "o3_chap": ("o3", 9000.0, 24000.0),
-    "o3_hh": ("o3", 27500.0, 40700.0),
-    "o3_uv": ("o3", 40900.0, 53900.0),
-    "o2_fund": ("o2", 1400.0, 1800.0),
-    "o2_inf1": ("o2", 7600.0, 8400.0),
-    "o2_inf2": ("o2", 9200.0, 10900.0),
-    "o2_aband": ("o2", 13000.0, 13200.0),
-    "o2_vis": ("o2", 15100.0, 29800.0),
-    "o2_herz": ("o2", 36100.0, 40000.0),
-    "o2_fuv": ("o2", 56800.0, 60000.0),
-    "n2_fund": ("n2", 2050.0, 2850.0),
-    "n2_overtone": ("n2", 4400.0, 4900.0),
-    "rayleigh": ("rayleigh", 830.0, 900.0),
-}
+# activation test), three points each (testing.continuum_grid's "ir")
+IR_BANDS = testing.IR_BANDS
 REC12 = ("    1         1         1              1         {iatm}"
          "              0    0")
 REC14 = ("     0.    1.0       0.000E+00 0.000E+00 0.000E+00 0.000E+00 "
@@ -1114,9 +1118,8 @@ def phase10_infrared(cat, state, dev, kernels, reset_counts) -> None:
     from monortm_tpu_torch.models.monortm import MonoRTM
     from monortm_tpu_torch.types import LayerState
 
-    wn = np.unique(np.concatenate([np.linspace(a, b, 3)
-                                   for _, a, b in IR_BANDS.values()]))
-    m = MonoRTM(wn, 0.0, cat, nmol=22, device=dev)
+    wn, dvset = testing.continuum_grid("ir")
+    m = MonoRTM(wn, dvset, cat, nmol=22, device=dev)
     names = [s.name for s in m.od_model.cont.subs]
     log(f"  {len(wn)} wavenumbers {wn[0]:.1f}-{wn[-1]:.1f} cm^-1; "
         f"sub-continua {names}; Rayleigh "
@@ -1392,6 +1395,12 @@ def rank_lines(what, outs) -> list:
     return launches
 
 
+def forward_launches(launches: dict) -> list:
+    """A rank's launch line's forward counts (a CLI run calls no adjoint,
+    so the `.bwd` entries read 0)."""
+    return [v for k, v in launches.items() if not k.endswith(".bwd")]
+
+
 def engine_lines(outdir: Path) -> list:
     return [ln for ln in (outdir / "MONORTM.LOG").read_text().splitlines()
             if ln.startswith(" ENGINE SPLIT")]
@@ -1506,9 +1515,10 @@ def phase13_mesh(tmp: Path, grad_inputs: dict) -> dict:
             f"{engine_lines(out)}; the same split as phase 8 cap "
             f"{PIPE_CAPS[0]}: {same_split}; MONORTM.OUT byte-identical to "
             f"it: {same}")
-        if not all(lc and all(lc.values()) for lc in launches[mesh]):
-            FAILED.append(f"mesh {mesh}: a rank did not launch both forward "
-                          f"kernels: {launches[mesh]}")
+        if not all(lc and all(forward_launches(lc))
+                   for lc in launches[mesh]):
+            FAILED.append(f"mesh {mesh}: a rank did not launch every forward "
+                          f"kernel: {launches[mesh]}")
         if same_split and not same:
             FAILED.append(f"mesh {mesh}: MONORTM.OUT differs from the "
                           "single-device run under the same engine split")
@@ -1528,9 +1538,9 @@ def phase13_mesh(tmp: Path, grad_inputs: dict) -> dict:
         lc = rank_lines(f"mesh 1x1x2 run {rep + 1}", outs)
         launches[f"1x1x2 run {rep + 1}"] = lc
         log(f"  mesh 1x1x2 run {rep + 1}: {wall:.3f} s")
-        if not all(c and all(c.values()) for c in lc):
-            FAILED.append(f"mesh 1x1x2: a rank did not launch both forward "
-                          f"kernels: {lc}")
+        if not all(c and all(forward_launches(c)) for c in lc):
+            FAILED.append(f"mesh 1x1x2: a rank did not launch every forward "
+                          f"kernel: {lc}")
         runs.append(out)
     if all((r / "MONORTM.OUT").exists() for r in runs):
         same = (runs[0] / "MONORTM.OUT").read_bytes() == \
@@ -2492,6 +2502,242 @@ def phase16_prologue(dev) -> dict:
     return out
 
 
+# phase 17: the continuum kernels (csrc/continuum.cu); the kernels a
+# value_and_grad step may launch inside its `continuum` and `continuum.bwd`
+# spans at the retrieval shape (917 with the eager stage: the kernels'
+# three, the OD sum's cotangent made contiguous, the gradients' sums with
+# the other stages'); the adjoint against autograd through the eager
+# stage as tests/test_torch_continuum_kernel.check_adjoint holds it; the
+# envelope's rows
+CONT_SPAN_LIMIT = 12
+CONT_TOL, CONT_F32_FACTOR = 1e-6, 4.0
+CONT_ENV_ROWS = 200
+CONT_GRADS = ("p", "t", "wk", "wbrod", "clw")
+
+
+def phase17_step(dev) -> dict:
+    """One value_and_grad step of phase 6's loss at the retrieval shape
+    under torch.profiler: the continuum kernels' (forward, adjoint) calls
+    by their counters and the kernels inside the `continuum` and
+    `continuum.bwd` spans; fails the phase past CONT_SPAN_LIMIT or unless
+    each entry point is called once."""
+    from monortm_tpu_torch.ops.continuum import CONTINUUM_KERNEL
+    from monortm_tpu_torch.types import LayerState
+    mw, st = retrieval_model(dev)
+    wn = mw.od_model.wn_t
+    emis = torch.full((len(wn),), 0.95, device=dev)
+    obs = torch.full((PRO_BATCH, len(wn)), 250.0, device=dev)
+    tsfc = torch.full((PRO_BATCH, 1), 288.0, device=dev)
+
+    def step():
+        eng, lor = mw.engine_split(st)
+        leaves = LayerState(**{f: getattr(st, f).detach().requires_grad_()
+                               for f in FIELDS})
+        tb = mw.tb(leaves, tsfc, emis, 1.0 - emis, irt=3, engine=eng,
+                   lor_layers=lor)
+        loss = torch.mean((tb - obs) ** 2)
+        torch.autograd.grad(loss, [getattr(leaves, f) for f in FIELDS])
+        torch.cuda.synchronize()
+
+    step()
+    k = CONTINUUM_KERNEL
+    n0 = (k.launches, k.bwd_launches)
+    names = ("engine-split", "lines", "lines.bwd", "continuum",
+             "continuum.bwd", "od-sum", "od-sum.bwd", "rt", "rt.bwd")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            step()
+        trace = Path(tmp) / "step.json"
+        prof.export_chrome_trace(str(trace))
+        by_span, total, by_op = span_kernels(trace, names)
+    calls = [k.launches - n0[0], k.bwd_launches - n0[1]]
+    cont = {n: by_span[n] for n in ("continuum", "continuum.bwd")}
+    for span in cont:
+        log(f"  {span} kernels by operator: "
+            f"{sorted(by_op[span].items(), key=lambda kv: -kv[1])}")
+    log(f"  value_and_grad at {PRO_BATCH} x {PRO_NLAY}: continuum (forward, "
+        f"adjoint) calls {calls}; kernels in continuum {cont['continuum']}, "
+        f"continuum.bwd {cont['continuum.bwd']} (limit {CONT_SPAN_LIMIT}), "
+        f"{total} in the step; by span {by_span}")
+    if sum(cont.values()) > CONT_SPAN_LIMIT or calls != [1, 1]:
+        FAILED.append(f"value_and_grad: {cont} kernels in the continuum "
+                      f"stage, continuum calls {calls}")
+    return {"continuum_calls": calls, "span_kernels": cont,
+            "step_spans": by_span, "kernels": total}
+
+
+def phase17_continuum(dev) -> dict:
+    """Phase 17 (see the module docstring); returns its readings."""
+    from monortm_tpu_torch.ops.continuum import (CONTINUUM_KERNEL, SPECIES,
+                                                 ContinuumPlan)
+    from monortm_tpu_torch.ops.continuum_kernel import (N_SPECIES, N_WK,
+                                                        OUTPUTS,
+                                                        ContinuumKernel)
+    from monortm_tpu_torch.testing import (continuum_cotangents,
+                                           continuum_eager, continuum_grid,
+                                           continuum_rows)
+
+    k = CONTINUUM_KERNEL
+    out = {"registers": ContinuumKernel.registers()}
+    log(f"  registers per thread: {out['registers']}")
+    plans = {}
+
+    def plan(grid, nmol=22, nwn=None):
+        if (grid, nwn) not in plans:
+            wn, dvset = continuum_grid(grid, nwn)
+            plans[grid, nwn] = ContinuumPlan(wn, dvset=dvset, nmol=nmol,
+                                             device=dev)
+        return plans[grid, nwn]
+
+    rows = lambda batch, nlay=PRO_NLAY: continuum_rows(nlay, batch,
+                                                       device=dev)
+    eager = continuum_eager
+
+    def kern(pl, p, t, wk, wbrod, clw):
+        oc, cl = k(pl, p, t, wk, wbrod, clw)
+        return [oc[s] for s in SPECIES] + [cl]
+
+    def bitwise(what, pl, state):
+        with torch.no_grad():
+            got, ref = kern(pl, *state), eager(pl, *state)
+        torch.cuda.synchronize()
+        u = {n: 0.0 if torch.equal(a, b) else max_ulps(a, b)
+             for n, a, b in zip(OUTPUTS, got, ref)}
+        log(f"  {what}: {tuple(got[0].shape)} outputs bitwise "
+            f"{[n for n, v in u.items() if v == 0.0]}"
+            + "".join(f"; {n} up to {v:.0f} ulps" for n, v in u.items()
+                      if v))
+        if any(u.values()):
+            FAILED.append(f"{what}: not bitwise: "
+                          f"{ {n: v for n, v in u.items() if v} }")
+        return u
+
+    def grads(fn, state, g, dtype=torch.float32):
+        leaves = [v.detach().to(dtype).clone().requires_grad_()
+                  for v in state]
+        outs = fn(*leaves)
+        pairs = [(o, v.to(dtype)) for o, v in zip(outs, g)
+                 if v is not None and o.requires_grad]
+        return torch.autograd.grad([o for o, _ in pairs], leaves,
+                                   [v for _, v in pairs], allow_unused=True)
+
+    def adjoint(what, pl, state, g):
+        got = grads(lambda *a: kern(pl, *a), state, g)
+        again = grads(lambda *a: kern(pl, *a), state, g)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        r32 = grads(lambda *a: eager(pl, *a), state, g)
+        r64 = grads(lambda *a: eager(pl, *a, dtype=torch.float64), state, g,
+                    torch.float64)
+        torch.cuda.synchronize()
+        errs = {}
+        for n, a, b, c in zip(CONT_GRADS, got, r32, r64):
+            if b is None:
+                errs[n] = float(a.abs().max())
+                if errs[n]:
+                    FAILED.append(f"{what}: d{n} should be zero")
+                continue
+            own = rel_norm(b, c)
+            tol = max(CONT_TOL, CONT_F32_FACTOR * own)
+            errs[n] = (rel_norm(a, b), rel_norm(a, c), own)
+            if errs[n][0] > tol or errs[n][1] > tol:
+                FAILED.append(f"{what}: d{n} vs autograd (float32, float64) "
+                              f"{errs[n][:2]} beyond {tol:.2e}")
+        log(f"  {what}: two runs bitwise: {same}; of each gradient's norm "
+            "vs autograd float32 / float64 (float32's own distance): "
+            + ", ".join(f"{n} {e[0]:.2e} / {e[1]:.2e} ({e[2]:.2e})"
+                        for n, e in errs.items() if isinstance(e, tuple)))
+        if not same:
+            FAILED.append(f"{what}: two runs of the adjoint differ")
+        return errs
+
+    def cotangents(pl, R, kind, seed=17):
+        return continuum_cotangents(pl, R, kind, seed, device=dev)
+
+    def times(what, pl, state, reps):
+        p, t, wk, wbrod, clw = state
+        R, W = p.shape[0], len(pl.wn)
+        pk = pl.kernel_pack
+        fwd = lambda: k.launch(pk, p, t, wk, wbrod, clw)
+        _, absrb = fwd()
+        g = cotangents(pl, R, "random", seed=18)
+        bwd = lambda: k.launch_bwd(pk, p, t, wk, wbrod, clw, absrb, g)
+        r = {"ms": cuda_ms(fwd, reps), "bwd_ms": cuda_ms(bwd, reps)}
+        with torch.no_grad():
+            r["plain_ms"] = cuda_ms(lambda: eager(pl, *state),
+                                    max(1, reps // 4))
+        leaves = [v.detach().clone().requires_grad_() for v in state]
+        outs = eager(pl, *leaves)
+        pairs = [(o, v) for o, v in zip(outs, g) if o.requires_grad]
+        r["plain_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            [o for o, _ in pairs], leaves, [v for _, v in pairs],
+            retain_graph=True, allow_unused=True), max(1, reps // 4))
+        del outs, pairs, leaves
+        plan_bytes = pk["ints"].numel() * 4 + pk["flts"].numel() * 4
+        rows_bytes = R * (4 + N_WK) * 4
+        io = len(OUTPUTS) * R * W * 4
+        r["bound_ms"] = (io + rows_bytes + plan_bytes) / PEAK_BYTES * 1e3
+        r["bwd_bound_ms"] = (io + 2 * rows_bytes + plan_bytes
+                             + R * N_SPECIES * pk["nptabs"] * 4) \
+            / PEAK_BYTES * 1e3
+        r["bound_by"] = "bytes"
+        log(f"  {what} ({R} rows x {W} wn): forward {r['ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f}, eager {r['plain_ms']:.4f}), "
+            f"adjoint {r['bwd_ms']:.4f} ms (bound {r['bwd_bound_ms']:.4f}, "
+            f"eager autograd {r['plain_bwd_ms']:.4f})")
+        return r
+
+    # (a) the forward, bitwise: the retrieval shape (8 x 40 rows) and 64 x
+    # 40 on the microwave grid, the infrared grid (every sub-continuum and
+    # Rayleigh, nmol 39), the envelope (200 rows x 80000 wn, nmol 7)
+    mw = plan("mw")
+    ir = plan("ir", 39)
+    env = plan("envelope", 7, 80000)
+    out["bitwise"] = {
+        "mw 320": bitwise("retrieval shape", mw, rows(PRO_BATCH)),
+        "mw 2560": bitwise("64 x 40 rows", mw, rows(64)),
+        "ir 320": bitwise("infrared grid, nmol 39", ir, rows(PRO_BATCH)),
+        "envelope": bitwise("envelope, nmol 7", env,
+                            rows(1, CONT_ENV_ROWS))}
+    # (b) the adjoint
+    out["adjoint"] = {}
+    for kind in ("shared", "random"):
+        for name, pl in (("mw", mw), ("ir", ir)):
+            st = rows(PRO_BATCH)
+            g = cotangents(pl, st[0].shape[0], kind)
+            out["adjoint"][f"{name} {kind}"] = adjoint(
+                f"adjoint, {name} grid, {kind} cotangents", pl, st, g)
+    # (c) times at the retrieval shape and the envelope
+    out["mw_times"] = times("retrieval shape", mw, rows(PRO_BATCH), 50)
+    out["envelope_times"] = times("envelope", env, rows(1, CONT_ENV_ROWS), 5)
+    # (d) the kernels of the stage at the retrieval shape, eager and
+    # kernels (one forward and backward each, every kernel of the
+    # profiled region), and one value_and_grad step's spans
+    st = rows(PRO_BATCH)
+    g = cotangents(mw, st[0].shape[0], "shared")
+    counts = {}
+    for name, fn in (("eager", lambda *a: eager(mw, *a)),
+                     ("kernels", lambda *a: kern(mw, *a))):
+        grads(fn, st, g)
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            acts = [torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                grads(fn, st, g)
+                torch.cuda.synchronize()
+            trace = Path(tmp) / "stage.json"
+            prof.export_chrome_trace(str(trace))
+            ev = json.loads(trace.read_text())["traceEvents"]
+        counts[name] = sum(1 for e in ev if e.get("cat") == "kernel")
+    out["stage_kernels"] = counts
+    log(f"  the stage's forward and backward at the retrieval shape: "
+        f"{counts['eager']} kernels eager, {counts['kernels']} through the "
+        f"continuum kernels")
+    out["step"] = phase17_step(dev)
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -2505,6 +2751,7 @@ def main(argv=None) -> int:
                                                VOIGT_KERNEL,
                                                line_sum_bwd_plain)
     from monortm_tpu_torch.ops.linesum_lorentz import LORENTZ_KERNEL
+    from monortm_tpu_torch.ops.continuum import CONTINUUM_KERNEL
     from monortm_tpu_torch.ops.lineshape import LineConfig
     from monortm_tpu_torch.ops.voigt import sdvoigt
     from monortm_tpu_torch.models.monortm import MonoRTM
@@ -2527,7 +2774,7 @@ def main(argv=None) -> int:
         check(not FAILED, f"phase {k}: " + "; ".join(FAILED))
 
     def reset_counts():
-        for k in (*kernels.values(), PROLOGUE_KERNEL):
+        for k in (*kernels.values(), PROLOGUE_KERNEL, CONTINUUM_KERNEL):
             k.launches = k.bwd_launches = 0
 
     if argv == ["--float64"]:
@@ -2648,6 +2895,12 @@ def main(argv=None) -> int:
         phase_done(16)
         print(json.dumps({"phase16": pro}))
         return 0
+    if argv == ["--continuum"]:
+        log("phase 17 the continuum kernels")
+        cont = phase17_continuum(dev)
+        phase_done(17)
+        print(json.dumps({"phase17": cont}))
+        return 0
     if argv == ["--envelope"]:
         # phases 14 and 15 alone
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2722,11 +2975,13 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     launches = {e: k.launches for e, k in kernels.items()}
     log(f"  kernel launches in the forward: {launches}, prologue "
-        f"{PROLOGUE_KERNEL.launches}")
+        f"{PROLOGUE_KERNEL.launches}, continuum {CONTINUUM_KERNEL.launches}")
     check(all(n > 0 for n in launches.values())
-          and PROLOGUE_KERNEL.launches == len(launches),
+          and PROLOGUE_KERNEL.launches == len(launches)
+          and CONTINUUM_KERNEL.launches == 1,
           f"a kernel of the path did not launch: {launches}, prologue "
-          f"{PROLOGUE_KERNEL.launches}")
+          f"{PROLOGUE_KERNEL.launches}, continuum "
+          f"{CONTINUUM_KERNEL.launches}")
     tb = out.rt.tb
     check(tuple(tb.shape) == (BATCH, NWN), f"tb shape {tuple(tb.shape)}")
     check(bool(torch.isfinite(tb).all()), "non-finite tb")
@@ -2890,11 +3145,14 @@ def main(argv=None) -> int:
                for e, k in kernels.items()}
     counts6["prologue"] = (PROLOGUE_KERNEL.launches,
                            PROLOGUE_KERNEL.bwd_launches)
+    counts6["continuum"] = (CONTINUUM_KERNEL.launches,
+                            CONTINUUM_KERNEL.bwd_launches)
     log(f"  loss {float(loss):.6e}; (forward, adjoint) launches: "
         f"{counts6}; kernels the adjoint library started: {started}")
-    check(all(a > 0 and b > 0 for a, b in counts6.values()),
+    check(all(a > 0 and b > 0 for a, b in counts6.values())
+          and counts6["continuum"] == (1, 1),
           f"a kernel of the path did not launch: {counts6}")
-    del counts6["prologue"]
+    del counts6["prologue"], counts6["continuum"]
     for f, gr in grads.items():
         log(f"  d loss / d {f}: max|g|={float(gr.abs().max()):.4e} "
             f"shape {tuple(gr.shape)}")
@@ -3098,6 +3356,11 @@ def main(argv=None) -> int:
     prologue = phase16_prologue(dev)
     phase_done(16)
 
+    # ---- phase 17: the continuum kernels --------------------------------
+    log("phase 17 the continuum kernels")
+    continuum = phase17_continuum(dev)
+    phase_done(17)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -3119,7 +3382,7 @@ def main(argv=None) -> int:
              "envelope_deferred_slots")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows],
-        "prologue": prologue}))
+        "prologue": prologue, "continuum": continuum}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,8 @@ the card cuda:LOCAL_RANK unless `--device` names one (`--device cuda:0`
 puts every rank on one card, which needs `--backend gloo`; `--device
 cpu` runs the ranks on the CPU).  `--mesh` shapes the ranks (its size
 must be the world's); every rank prints its backend and device, and its
-line-sum kernel launches at the end; rank 0 writes the files.
+kernel launches at the end (line sums, prologue, continuum and its
+adjoint); rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -141,15 +142,17 @@ def main(argv=None):
                   wn_tile=args.wn_tile, line_tile=args.line_tile,
                   netcdf=args.netcdf, workers=args.workers, mesh=mesh)
         dt = time.time() - t0
+        from monortm_tpu_torch.ops.continuum import CONTINUUM_KERNEL
         from monortm_tpu_torch.ops.linesum import (PROLOGUE_KERNEL,
                                                    VOIGT_KERNEL)
         from monortm_tpu_torch.ops.linesum_lorentz import LORENTZ_KERNEL
         rank = dist.get_rank() if joined else 0
-        print(f"monortm-tpu-torch: rank {rank}: line-sum kernel launches "
-              + json.dumps({k.name: k.launches
-                            for k in (VOIGT_KERNEL, LORENTZ_KERNEL,
-                                      PROLOGUE_KERNEL)}),
-              flush=True)
+        launches = {k.name: k.launches
+                    for k in (VOIGT_KERNEL, LORENTZ_KERNEL, PROLOGUE_KERNEL,
+                              CONTINUUM_KERNEL)}
+        launches["continuum.bwd"] = CONTINUUM_KERNEL.bwd_launches
+        print(f"monortm-tpu-torch: rank {rank}: kernel launches "
+              + json.dumps(launches), flush=True)
         print(f"monortm-tpu-torch: {len(res.tb)} profile(s) x "
               f"{len(res.wn)} wavenumber(s) in {dt:.2f}s")
     finally:

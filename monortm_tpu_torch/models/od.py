@@ -29,6 +29,10 @@ engine, so a float32 model that runs only the kernels never holds them;
 one built with `kernels=False` (the JAX `use_pallas=False`) builds no
 kernel plan and runs the dense engine alone.
 
+The continuum and cloud stage is one call of `CONTINUUM_KERNEL`
+(csrc/continuum.cu) each way for CUDA float32 states, and the eager
+`ContinuumPlan.__call__` + `ops.cloud.od_clw` otherwise.
+
 Cross-sections are host numpy (`ops.xsec`, the pipeline's `xsec-prep`
 stage); `od_xsec` adds their OD to the total.
 
@@ -41,7 +45,9 @@ each rank keeps its own rows and column block, with a reverse map made
 from them, and launches the kernels there.  The line-axis partials are
 all-reduced (`distributed.sum_partials`).  The continuum runs on the full
 grid and is sliced (its XINT regrid and host windowing see the whole
-grid), the cloud, RFT*W and RT on the rank's columns.  Gradients: the line
+grid), the cloud, RFT*W and RT on the rank's columns (the cloud on the
+whole grid too where the continuum kernels compute it with the
+continuum, on CUDA float32 states).  Gradients: the line
 sum's inputs, which every (wn, line) rank holds alike, sum their
 cotangents over ("wn", "line") (the kernel path's seven cotangents), and
 the state's wn-local uses sum theirs over "wn" (`wn_entry`), so each
@@ -59,8 +65,8 @@ import torch
 from monortm_tpu_torch import constants as cst
 from monortm_tpu_torch.lines import PackedCatalog
 from monortm_tpu_torch.ops.cloud import od_clw
-from monortm_tpu_torch.ops.continuum import (SPECIES, ContinuumFactors,
-                                             ContinuumPlan)
+from monortm_tpu_torch.ops.continuum import (CONTINUUM_KERNEL, SPECIES,
+                                             ContinuumFactors, ContinuumPlan)
 from monortm_tpu_torch.ops.lineshape import (LineConfig, catalog_to_device,
                                              catalog_to_host, line_od_block)
 from monortm_tpu_torch.ops.linesum import (VOIGT_KERNEL, line_constants,
@@ -689,6 +695,12 @@ class ODModel:
         def continuum(st):
             sw = LayerState(**{f: self.wn_entry(getattr(st, f))
                                for f in FIELDS})
+            if sw.p.device.type == "cuda" and dtype == torch.float32:
+                # the kernels, cloud included, over the whole grid
+                oc, o_clw = CONTINUUM_KERNEL(self.cont, sw.p, sw.t, sw.wkl,
+                                             sw.wbrodl, sw.clw)
+                return ({k: self.local_wn(v) for k, v in oc.items()},
+                        self.local_wn(o_clw))
             oc = {k: self.local_wn(v) for k, v in self.cont(
                 sw.p, sw.t, sw.wkl, sw.wbrodl, dtype=dtype).items()}
             # cloud liquid water (modm.f90:264)

@@ -10,6 +10,13 @@ Every sub-continuum of the JAX package is ported: H2O self and foreign,
 CO2 foreign, O3 (Chappuis/Wulf, Hartley-Huggins, UV), O2 (fundamental,
 1.27 um, 1.06 um, A-band, visible, Herzberg, far UV), N2 (rotational,
 fundamental, overtone) and Rayleigh.
+
+`ContinuumPlan.__call__` is the eager version, which CPU and float64
+states take.  A plan on a CUDA device also packs itself for the kernels
+at build time (`kernel_pack`, `ops.continuum_kernel.pack`), and
+`CONTINUUM_KERNEL` evaluates the continuum and the cloud of CUDA float32
+states from it in one call each way (csrc/continuum.cu), bit for bit the
+eager CUDA version's forward.
 """
 
 from __future__ import annotations
@@ -23,12 +30,14 @@ import torch
 from monortm_tpu_torch import constants as cst
 from monortm_tpu_torch.data import loader
 from monortm_tpu_torch.ops.arith import rdiv
+from monortm_tpu_torch.ops.continuum_kernel import ContinuumKernel, pack
 from monortm_tpu_torch.ops.planck import radfn
 from monortm_tpu_torch.ops.xint import (DeviceXintPlan, XintPlan,
                                         build_xint_plan,
                                         build_xint_plan_points, _trunc)
 
 SPECIES = ("h2o", "co2", "o3", "o2", "n2", "rayleigh")
+CONTINUUM_KERNEL = ContinuumKernel()
 
 @dataclass(frozen=True)
 class ContinuumFactors:
@@ -181,6 +190,8 @@ class ContinuumPlan:
         self._build_o2()
         self._build_n2()
         self._build_rayleigh()
+        self.kernel_pack = (pack(self) if torch.device(device).type == "cuda"
+                            else None)
 
     # ----- plan helpers ---------------------------------------------------
 

@@ -1,9 +1,11 @@
-"""Build, bind and launch the CUDA line-sum kernels (`csrc/`).
+"""Build, bind and launch the CUDA kernels (`csrc/`).
 
-Three sources, each a shared library with plain C entry points: the
-forward sum `linesum.cu`, its adjoint `linesum_bwd.cu` and the LINES
-prologue with its adjoint `prologue.cu`; all include the device math of
-`linesum_math.cuh`, the prologue also `prologue_math.cuh`.  They are
+Four sources, each a shared library with plain C entry points: the
+forward sum `linesum.cu`, its adjoint `linesum_bwd.cu`, the LINES
+prologue with its adjoint `prologue.cu`, which include the device math of
+`linesum_math.cuh` (the prologue also `prologue_math.cuh`), and the
+continuum and cloud with their adjoint `continuum.cu`, which includes
+`continuum_math.cuh` (its wrapper is `ops.continuum_kernel`).  They are
 compiled at first use with `nvcc`, one process per source started
 together, into `build/` at the repository root, under names keyed by a
 hash of the source, the headers and the flags, and loaded with ctypes.  Importing this module
@@ -49,8 +51,9 @@ from monortm_tpu_torch import constants as cst
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"forward": CSRC / "linesum.cu", "backward": CSRC / "linesum_bwd.cu",
-           "prologue": CSRC / "prologue.cu"}
-HEADERS = (CSRC / "linesum_math.cuh", CSRC / "prologue_math.cuh")
+           "prologue": CSRC / "prologue.cu", "continuum": CSRC / "continuum.cu"}
+HEADERS = (CSRC / "linesum_math.cuh", CSRC / "prologue_math.cuh",
+           CSRC / "continuum_math.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -159,6 +162,19 @@ PRO_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                     + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
                     + [ctypes.c_int] + [ctypes.c_void_p] * 7)
 
+# monortm_continuum_forward: the packed plan (int32 and float32 arrays, the
+# host layout), teff, p, t, wk, wbrod, clw, rows, the ABSRB scratch, 7
+# outputs, stream
+CONT_FWD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_double]
+                     + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                     + [ctypes.c_void_p] * 9)
+# monortm_continuum_backward: as the forward up to the rows, the ABSRB
+# scratch, 7 cotangents, the rf and ABSRB-gradient scratch, 5 gradients,
+# stream
+CONT_BWD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_double]
+                     + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                     + [ctypes.c_void_p] * 16)
+
 
 class _Library:
     """The loaded entry points (loaded once, at first launch)."""
@@ -186,7 +202,12 @@ def entry_points(lib: ctypes.CDLL) -> dict:
             "prologue": ("monortm_prologue_forward", PRO_FWD_ARGTYPES),
             "prologue_bwd": ("monortm_prologue_backward", PRO_BWD_ARGTYPES),
             "prologue_info": ("monortm_prologue_info",
-                              [ctypes.POINTER(ctypes.c_int)])}
+                              [ctypes.POINTER(ctypes.c_int)]),
+            "continuum": ("monortm_continuum_forward", CONT_FWD_ARGTYPES),
+            "continuum_bwd": ("monortm_continuum_backward",
+                              CONT_BWD_ARGTYPES),
+            "continuum_info": ("monortm_continuum_info",
+                               [ctypes.POINTER(ctypes.c_int)])}
     fns = {}
     for role, (sym, argtypes) in sigs.items():
         if hasattr(lib, sym):
@@ -201,7 +222,7 @@ def _check_f32(dev, **tensors):
     for k, v in tensors.items():
         if v.device != dev or v.dtype != torch.float32 \
                 or not v.is_contiguous():
-            raise ValueError(f"line-sum operand {k}: need a contiguous "
+            raise ValueError(f"kernel operand {k}: need a contiguous "
                              f"float32 tensor on {dev}, got {v.dtype} on "
                              f"{v.device}")
 

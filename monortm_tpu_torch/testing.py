@@ -83,6 +83,83 @@ CAPACITY_SEED = 11
 CAPACITY_TILE = 256
 
 
+# chip_smoke's phase 10: sub-continuum -> (species, a wavenumber range
+# inside its activation test); continuum_grid("ir") takes three points
+# of each
+IR_BANDS = {
+    "o3_chap": ("o3", 9000.0, 24000.0),
+    "o3_hh": ("o3", 27500.0, 40700.0),
+    "o3_uv": ("o3", 40900.0, 53900.0),
+    "o2_fund": ("o2", 1400.0, 1800.0),
+    "o2_inf1": ("o2", 7600.0, 8400.0),
+    "o2_inf2": ("o2", 9200.0, 10900.0),
+    "o2_aband": ("o2", 13000.0, 13200.0),
+    "o2_vis": ("o2", 15100.0, 29800.0),
+    "o2_herz": ("o2", 36100.0, 40000.0),
+    "o2_fuv": ("o2", 56800.0, 60000.0),
+    "n2_fund": ("n2", 2050.0, 2850.0),
+    "n2_overtone": ("n2", 4400.0, 4900.0),
+    "rayleigh": ("rayleigh", 830.0, 900.0),
+}
+
+def continuum_grid(name: str, nwn: int | None = None):
+    """(wn, dvset) of a grid the continuum tests and chip_smoke share:
+    "mw", upstream example case 1's 101 wavenumbers over 0.2-1.2 cm^-1
+    (the retrieval cell's); "envelope", the capacity envelope's band from
+    0.3 cm^-1 by DVSET 0.69e-3 over 80000 points (`nwn` fewer points
+    widen the step, as `envelope.py --nwn` does; 2000 by default here);
+    "ir", three points in each band of IR_BANDS, an explicit list
+    (dvset 0), where every sub-continuum and Rayleigh are active."""
+    if name == "mw":
+        return np.linspace(0.2, 1.2, 101), 0.01
+    if name == "envelope":
+        nwn = nwn or 2000
+        dvset = 0.69e-3 * (80000 - 1) / (nwn - 1)
+        return 0.3 + dvset * np.arange(nwn), dvset
+    if name == "ir":
+        return np.unique(np.concatenate([np.linspace(a, b, 3) for _, a, b
+                                         in IR_BANDS.values()])), 0.0
+    raise ValueError(f"unknown continuum grid {name!r}")
+
+
+def continuum_rows(nlay: int = 40, batch: int = 2, seed: int = 0, *,
+                   device="cpu"):
+    """Flat float32 rows (p, t, wk [R, 39], wbrod, clw) of a layered state
+    (`synthetic_state`) with liquid water in a third of its layers: the
+    continuum kernels' tests and chip_smoke's phase 17."""
+    st = synthetic_state(nlay=nlay, batch=batch, seed=seed, device=device,
+                         dtype=torch.float32)
+    clw = st.clw.clone()
+    clw[..., 3:nlay // 3 + 3] = 0.05
+    return (st.p.reshape(-1), st.t.reshape(-1), st.wkl.reshape(-1, 39),
+            st.wbrodl.reshape(-1), clw.reshape(-1))
+
+
+def continuum_eager(plan, p, t, wk, wbrod, clw, dtype=torch.float32):
+    """The continuum and cloud stage as `ODModel`'s eager path forms it,
+    the cloud on the plan's grid: the seven outputs in
+    `ops.continuum_kernel.OUTPUTS` order."""
+    from monortm_tpu_torch.ops.cloud import od_clw
+    from monortm_tpu_torch.ops.continuum import SPECIES
+    oc = plan(p, t, wk, wbrod, dtype=dtype)
+    return [oc[k] for k in SPECIES] + [od_clw(
+        plan.wn_t.to(dtype), t[..., None], clw[..., None])]
+
+
+def continuum_cotangents(plan, n_rows: int, kind: str, seed: int = 0, *,
+                         device="cpu"):
+    """Seeded cotangents of the stage's seven outputs [n_rows, W]:
+    "random" (normal, each its own), "shared" (one positive array for
+    all, as the OD sum hands them on) or "cloud" (the cloud's alone)."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = (n_rows, len(plan.wn))
+    if kind == "random":
+        return [torch.randn(shape, generator=gen).to(device)
+                for _ in range(7)]
+    g = (torch.rand(shape, generator=gen) + 0.5).to(device)
+    return [g] * 7 if kind == "shared" else [None] * 6 + [g]
+
+
 def capacity_catalog(raw_lines: bool = False) -> PackedCatalog | RawLines:
     """The reference's design capacity of one molecule (250k lines,
     lnfl_mod.f90:5): CAPACITY_LINES H2O lines spread evenly over
